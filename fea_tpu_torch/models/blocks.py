@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_norm import group_norm_silu
+
 GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm's epsilon; torch's default is 1e-5
 
 
@@ -131,7 +133,9 @@ class LeanResnetSubBlock(nn.Module):
 
 
 class ResnetSubBlock(nn.Module):
-    """Conv + GroupNorm + SiLU."""
+    """Conv + GroupNorm + SiLU. Without a time scale-shift the norm, affine
+    and SiLU are one fused op (ops/fused_norm.py: the CUDA kernels on the
+    card), computing what flax's GroupNorm then silu compute."""
 
     def __init__(self, in_dim: int, output_dim: int, num_groups: int = 8):
         super().__init__()
@@ -139,11 +143,12 @@ class ResnetSubBlock(nn.Module):
         self.GroupNorm_0 = nn.GroupNorm(num_groups, output_dim, eps=GROUP_NORM_EPS)
 
     def forward(self, x, scale_shift: Optional[Tuple] = None):
-        x = self.GroupNorm_0(self.Conv_0(x))
-        if scale_shift is not None:
-            scale, shift = scale_shift
-            x = x * (scale + 1.0) + shift
-        return F.silu(x)
+        x = self.Conv_0(x)
+        norm = self.GroupNorm_0
+        if scale_shift is None:
+            return group_norm_silu(x, norm.weight, norm.bias, norm.num_groups, norm.eps)
+        scale, shift = scale_shift
+        return F.silu(norm(x) * (scale + 1.0) + shift)
 
 
 class ConditionedResnetBlock(nn.Module):

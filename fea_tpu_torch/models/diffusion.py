@@ -1,6 +1,5 @@
-"""Conditional DDPM sampler over FDN-UNet, the port of
-fea_tpu/models/diffusion.py (schedules, q_sample and the ancestral /
-strided sampler; the training loss is not ported yet).
+"""Conditional DDPM over FDN-UNet, the port of fea_tpu/models/diffusion.py:
+schedules, q_sample, the training loss and the ancestral / strided sampler.
 
 The schedules are computed in float64 and cast once to float32. The
 sampler is a Python loop over the time steps; its per-step scalars are
@@ -88,6 +87,34 @@ class GaussianDiffusion:
         a = self.sqrt_ab[t][:, None, None, None]
         s = self.sqrt_1mab[t][:, None, None, None]
         return (x_t - s * noise) / a.clamp_min(1e-8)
+
+    def loss(
+        self,
+        x0: torch.Tensor,
+        condition: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Mean-squared diffusion loss on a batch: NHWC x0 (B, H, W, 2) and
+        condition (B, H, W, 5). The time steps t (B,) uniform over
+        [0, timesteps) and the noise (x0's shape) are drawn from `generator`
+        unless given. The target is the noise ('pred_noise') or x0."""
+        if generator is None and (t is None or noise is None):
+            raise ValueError("loss needs a generator or both t and the noise")
+        b = x0.shape[0]
+        if t is None:
+            t = torch.randint(
+                0, self.timesteps, (b,), generator=generator, device=x0.device
+            )
+        if noise is None:
+            noise = torch.randn(
+                x0.shape, generator=generator, device=x0.device, dtype=x0.dtype
+            )
+        x_t = self.q_sample(x0, t, noise)
+        pred = self.model(x_t, condition, time=t.float())
+        target = noise if self.objective == "pred_noise" else x0
+        return torch.mean((pred - target) ** 2)
 
     @torch.no_grad()
     def sample(

@@ -10,6 +10,7 @@ MODULES = [
     "fea_tpu_torch",
     "fea_tpu_torch.ops",
     "fea_tpu_torch.ops.flash_attention",
+    "fea_tpu_torch.ops.fused_norm",
     "fea_tpu_torch.ops._build",
     "fea_tpu_torch.models",
     "fea_tpu_torch.models.blocks",
@@ -20,6 +21,13 @@ MODULES = [
     "fea_tpu_torch.models.convert",
     "fea_tpu_torch.models.initializers",
     "fea_tpu_torch.utils.device",
+    "fea_tpu_torch.data",
+    "fea_tpu_torch.data.dataset",
+    "fea_tpu_torch.train",
+    "fea_tpu_torch.train.ema",
+    "fea_tpu_torch.train.optim",
+    "fea_tpu_torch.train.trainer",
+    "fea_tpu_torch.train.diffusion_trainer",
 ]
 
 
