@@ -1,13 +1,14 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against TREE]
 
 Set-up: TF32 off for matmuls and convolutions; both kernel libraries (flash
 attention, fused GroupNorm+SiLU) are built at once, one nvcc each, from
 fea_tpu_torch/csrc into fea_tpu_torch/_build.
-Phase 1: the flash kernel against its plain PyTorch version at the
-         sampler's shape (BH 8, Nq 1024, Nk 1028, D 32) and a ragged one, f32
-         and bf16, timed with CUDA events beside the plain version and
+Phase 1: the flash kernel (tensor cores: 3xTF32 for f32, bf16 products
+         for bf16) against its plain PyTorch version at the sampler's shape
+         (BH 8, Nq 1024, Nk 1028, D 32) and a ragged one, f32 and bf16, timed
+         on the device beside the plain version and
          F.scaled_dot_product_attention.
 Phase 2: the conditional-DDPM sampler at full width (FDNUNet input_dim 64,
          4 stages, 256 px, flash attention, random seeded weights) answers
@@ -15,14 +16,18 @@ Phase 2: the conditional-DDPM sampler at full width (FDNUNet input_dim 64,
          launched 3 x 25 times and the GroupNorm+SiLU forward 9 x 25, and the
          output must agree with the same sampler run through plain
          attention, and the card with the CPU on a small input.
+         The GroupNorm+SiLU kernels take contiguous NCHW x and raise on any
+         other layout, so phases 2, 3, 5 and 6 running through them show
+         that every model path gives them NCHW.
 Phase 3: the regression predictor (create_models + predict) at batch 4; the
          GroupNorm+SiLU forward launches 18 times per call.
 Phase 4: the GroupNorm+SiLU kernels, forward and forward+backward, against
          the plain version at the four stage shapes at every batch the
-         other phases give them (2, 4 and 16) and a ragged shape, both
-         layouts, f32, bf16 x with f32 params and bf16 x with bf16 params;
-         timed at batch 16 beside the plain version and
-         F.silu(F.group_norm(...)).
+         other phases give them (2, 4 and 16) and a ragged shape, f32, bf16
+         x with f32 params and bf16 x with bf16 params; timed at batch 16
+         beside the plain version and F.silu(F.group_norm(...)), each
+         backward through autograd (the kernel's reads the forward's saved
+         coefficients).
 Phase 5: the regression Trainer at full width (input_dim 64, 4 stages,
          256 px, batch 16, EMA, all three Adam chains) on a seeded synthetic
          dataset: train() takes a warm-up step and 3 more in f32 (18 + 18
@@ -33,13 +38,23 @@ Phase 6: the DiffusionTrainer at full width (FDNUNet input_dim 64, 4 stages,
          256 px, batch 4): train() takes a warm-up step and 2 more (9 + 9
          launches per step).
 
+Kernel times are device times: CUDA events around calls that the host
+queued behind a device-side wait, each function timed in turns.
+`--against TREE` also times the kernels of another checkout of this repo
+(for example the parent commit, `git archive` unpacked into a git-ignored
+directory) in the same turns, as `earlier`; they build into that
+checkout's fea_tpu_torch/_build.
+
 Prints the card, a JSON line of the kernels, and as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then not 0 and no result line is printed. Needs CUDA; exits 1 without it.
 """
 
+import argparse
 import copy
 import functools
+import importlib
+import importlib.util
 import json
 import math
 import shutil
@@ -65,15 +80,28 @@ BF16_ATOL = 1e-2  # one bf16 rounding of the output
 FLASH_VS_PLAIN_ATOL = 5e-4  # one forward: fea_tpu's flash-vs-math bound
 SAMPLE_ATOL = 1e-3  # 25 steps, compared on the clipped output
 CPU_ATOL = 1e-4  # card vs CPU on a small input, f32 without TF32
+# the redesigned kernels' designs, for the kernels line
+REDESIGNED = {
+    "flash_attention": "tensor-core mma.sync, 3xTF32 for f32",
+    "group_norm_silu_bwd": "two launches over the forward's saved coefficients",
+}
 
 
 def log(*args):
     print(*args, flush=True)
 
 
+# a device-side wait of about 50 ms (at up to 2 GHz) before each timed run:
+# the host queues the run's calls meanwhile, so the events time the device
+# and not the host's launch cost (tens of microseconds a call here)
+QUEUE_CYCLES = 100_000_000
+
+
 def cuda_ms(fn, iters):
-    """Mean milliseconds per call over `iters` calls, by CUDA events."""
+    """Mean device milliseconds per call over `iters` calls, by CUDA events
+    around calls the host queued behind a device-side wait."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -82,15 +110,31 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def in_turns(kernel, plain, library, iters):
-    """Mean ms per call of each, after a warm-up, timed in turns (plain,
-    kernel, library, library, kernel, plain) and averaged over both turns."""
-    for fn in (kernel, plain, library):
-        cuda_ms(fn, 3)
-    p1, k1, l1, l2, k2, p2 = (
-        cuda_ms(fn, iters) for fn in (plain, kernel, library, library, kernel, plain)
-    )
-    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+def in_turns(fns, iters):
+    """Mean ms per call of each function of the dict `fns`, after a
+    warm-up, timed in turns (in order, then in reverse) and averaged over
+    both turns."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    names = list(fns)
+    ms = dict.fromkeys(names, 0.0)
+    for name in names + names[::-1]:
+        ms[name] += cuda_ms(fns[name], iters) / 2
+    return ms
+
+
+def load_ops(tree):
+    """The `fea_tpu_torch.ops` package of another checkout, as the module
+    `earlier_ops`; its kernels build into that checkout's _build."""
+    path = Path(tree).resolve() / "fea_tpu_torch" / "ops"
+    spec = importlib.util.spec_from_file_location(
+        "earlier_ops", path / "__init__.py", submodule_search_locations=[str(path)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["earlier_ops"] = module
+    spec.loader.exec_module(module)
+    return module
 
 
 def reset_counts():
@@ -120,7 +164,10 @@ def max_abs_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def phase_kernel(device):
+def phase_kernel(device, earlier):
+    """Checks, then {dtype: {name: ms}} at FLASH_SHAPE for the kernel, the
+    plain version, the library call and, given `earlier` (another tree's
+    ops), its kernel."""
     from fea_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 
     errs = {}
@@ -153,14 +200,19 @@ def phase_kernel(device):
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (t.to(dtype) for t in qkv(FLASH_SHAPE, device, SEED))
-        kernel = lambda: flash_attention(q, k, v)  # noqa: E731
-        plain = lambda: flash_attention_reference(q, k, v)  # noqa: E731
-        library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-        times[dtype] = in_turns(kernel, plain, library, 50)
-        k, p, lib = times[dtype]
+        fns = {
+            "kernel": lambda: flash_attention(q, k, v),
+            "plain": lambda: flash_attention_reference(q, k, v),
+            "library": lambda: F.scaled_dot_product_attention(q, k, v),
+        }
+        if earlier is not None:
+            fns["earlier"] = lambda: earlier.flash_attention(q, k, v)
+        ms = times[dtype] = in_turns(fns, 50)
         log(
-            f"phase 1: flash {FLASH_SHAPE} {str(dtype)[6:]}: kernel {k:.4f} ms, "
-            f"plain {p:.4f} ms, scaled_dot_product_attention {lib:.4f} ms per call"
+            f"phase 1: flash {FLASH_SHAPE} {str(dtype)[6:]}: kernel {ms['kernel']:.4f} ms, "
+            f"plain {ms['plain']:.4f} ms, scaled_dot_product_attention {ms['library']:.4f} ms"
+            + (f", earlier kernel {ms['earlier']:.4f} ms" if earlier is not None else "")
+            + " per call"
         )
     return errs[FLASH_SHAPE, "f32"], times[torch.float32]
 
@@ -332,9 +384,10 @@ GN_BF16_TOL = dict(atol=1e-2, rtol=1e-2)  # y, dx: one bf16 rounding (2^-8 relat
 # dgamma, dbeta of bf16 x: f32 sums of the same bf16 terms; in bf16 params,
 # one bf16 rounding of those sums (at most 2^-7 of the element)
 GN_BF16_PARAM_REL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
-# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s off the tensor cores
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, dense TF32 FLOP/s on
+# the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+TF32_TENSOR_FLOPS = 495e12
 
 TRAIN_BATCH = 16
 TRAIN_STEPS = 3  # timed, after one warm-up step, per compute dtype
@@ -351,10 +404,11 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_REL = 1e-3
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, flops):
     """The least time for the work: bytes over the HBM rate or operations
-    over the f32 rate, whichever is larger; and which one it was."""
-    by_bytes, by_ops = bytes_ms(nbytes), ops / F32_FLOPS * 1e3
+    over the rate `flops` of the unit that does them, whichever is larger;
+    and which one it was."""
+    by_bytes, by_ops = bytes_ms(nbytes), ops / flops * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -366,18 +420,14 @@ def bytes_ms(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def gn_case(device, b, hw, c, dtype, layout, seed):
-    """x and a cotangent (B, C, H, W) in `layout`, gamma and beta (C,) f32."""
+def gn_case(device, b, hw, c, dtype, seed):
+    """x and a cotangent (B, C, H, W) contiguous, gamma and beta (C,) f32."""
     h = math.isqrt(hw)
     while hw % h:
         h -= 1
     g = torch.Generator(device=device).manual_seed(seed)
-    x, ct = (
-        torch.randn((b, h, hw // h, c), generator=g, device=device).permute(0, 3, 1, 2).to(dtype)
-        for _ in range(2)
-    )
-    if layout == "nchw":
-        x = x.contiguous()
+    x, ct = (torch.randn((b, c, h, hw // h), generator=g, device=device).to(dtype)
+             for _ in range(2))
     gamma, beta = (torch.randn(c, generator=g, device=device) for _ in range(2))
     return x, gamma, beta, ct
 
@@ -396,96 +446,99 @@ def rel_err(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
 
-def phase_group_norm(device):
-    """The kernels against the plain version (every case), then their time
-    beside it and the library chain at the stage shapes, channels-last."""
-    from fea_tpu_torch.ops.fused_norm import (
-        _backward, group_norm_silu, group_norm_silu_reference,
-    )
+def phase_group_norm(device, earlier):
+    """The kernels against the plain version in every case, then their
+    time beside it, the library chain and, given `earlier` (another tree's
+    ops), its kernels, at the stage shapes; per-step sums for the kernels'
+    rows."""
+    from fea_tpu_torch.ops.fused_norm import group_norm_silu, group_norm_silu_reference
 
     shapes = [(b, hw, c) for b in GN_BATCHES for hw, c in GN_STAGE_CALLS] + [GN_RAGGED]
     fwd_err = bwd_err = 0.0
     for b, hw, c in shapes:
-        for layout in ("channels_last", "nchw"):
-            for dtype, param_dtype in GN_DTYPES:
-                x, gamma, beta, ct = gn_case(device, b, hw, c, dtype, layout, SEED)
-                gamma, beta = gamma.to(param_dtype), beta.to(param_dtype)
-                got = gn_vjp(group_norm_silu, x, gamma, beta, ct)
-                torch.cuda.synchronize()
-                want = gn_vjp(group_norm_silu_reference, x, gamma, beta, ct)
-                case = f"{(b, hw, c)} {layout} x {str(dtype)[6:]}, params {str(param_dtype)[6:]}"
-                if got[0].stride() != x.stride() or got[1].stride() != x.stride():
-                    raise AssertionError(f"y or dx left x's layout at {case}")
-                if [t.dtype for t in got] != [dtype, dtype, param_dtype, param_dtype]:
-                    raise AssertionError(f"dtypes {[t.dtype for t in got]} at {case}")
-                errs = [max_abs_err(got[0], want[0])] + [
-                    rel_err(g, w) for g, w in zip(got[1:], want[1:])
-                ]
-                if dtype == torch.float32:
-                    torch.testing.assert_close(got[0], want[0], **GN_FWD_TOL)
-                    if max(errs[1:]) >= GN_VJP_REL:
-                        raise AssertionError(f"VJP relative errors {errs[1:]} at {case}")
-                    fwd_err = max(fwd_err, errs[0])
-                    bwd_err = max(bwd_err, max_abs_err(got[1], want[1]))
-                else:
-                    for g, w in zip(got[:2], want[:2]):
-                        torch.testing.assert_close(g.float(), w.float(), **GN_BF16_TOL)
-                    if max(errs[2:]) >= GN_BF16_PARAM_REL[param_dtype]:
-                        raise AssertionError(f"bf16 dgamma/dbeta errors {errs[2:]} at {case}")
-                log(
-                    f"phase 4: group_norm_silu {case}: y max abs err {errs[0]:.3e}; "
-                    "dx, dgamma, dbeta max rel err " + ", ".join(f"{e:.3e}" for e in errs[1:])
-                )
-                del x, ct, got, want
+        for dtype, param_dtype in GN_DTYPES:
+            x, gamma, beta, ct = gn_case(device, b, hw, c, dtype, SEED)
+            gamma, beta = gamma.to(param_dtype), beta.to(param_dtype)
+            got = gn_vjp(group_norm_silu, x, gamma, beta, ct)
+            torch.cuda.synchronize()
+            want = gn_vjp(group_norm_silu_reference, x, gamma, beta, ct)
+            case = f"{(b, hw, c)} x {str(dtype)[6:]}, params {str(param_dtype)[6:]}"
+            if not (got[0].is_contiguous() and got[1].is_contiguous()):
+                raise AssertionError(f"y or dx is not contiguous NCHW at {case}")
+            if [t.dtype for t in got] != [dtype, dtype, param_dtype, param_dtype]:
+                raise AssertionError(f"dtypes {[t.dtype for t in got]} at {case}")
+            errs = [max_abs_err(got[0], want[0])] + [
+                rel_err(g, w) for g, w in zip(got[1:], want[1:])
+            ]
+            if dtype == torch.float32:
+                torch.testing.assert_close(got[0], want[0], **GN_FWD_TOL)
+                if max(errs[1:]) >= GN_VJP_REL:
+                    raise AssertionError(f"VJP relative errors {errs[1:]} at {case}")
+                fwd_err = max(fwd_err, errs[0])
+                bwd_err = max(bwd_err, max_abs_err(got[1], want[1]))
+            else:
+                for g, w in zip(got[:2], want[:2]):
+                    torch.testing.assert_close(g.float(), w.float(), **GN_BF16_TOL)
+                if max(errs[2:]) >= GN_BF16_PARAM_REL[param_dtype]:
+                    raise AssertionError(f"bf16 dgamma/dbeta errors {errs[2:]} at {case}")
+            log(
+                f"phase 4: group_norm_silu {case}: y max abs err {errs[0]:.3e}; "
+                "dx, dgamma, dbeta max rel err " + ", ".join(f"{e:.3e}" for e in errs[1:])
+            )
+            del x, ct, got, want
 
-    per_step = {"fwd": np.zeros(3), "bwd": np.zeros(3)}
+    fns = {"kernel": group_norm_silu, "plain": group_norm_silu_reference,
+           "library": library_group_norm_silu}
+    if earlier is not None:
+        fns["earlier"] = earlier.group_norm_silu
+    # ms per f32 / bf16 train step (its 18 calls) by (direction, dtype), a
+    # dict by name as fns
+    per_step = {}
     step_bytes = {"fwd": 0, "bwd": 0}
     for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:].replace("float", "f")
         for (hw, c), calls in GN_STAGE_CALLS.items():
-            x, gamma, beta, dy = gn_case(device, TRAIN_BATCH, hw, c, dtype, "channels_last", SEED)
+            x, gamma, beta, dy = gn_case(device, TRAIN_BATCH, hw, c, dtype, SEED)
             gamma, beta = gamma.to(dtype), beta.to(dtype)  # as the bf16 trainer passes them
-            fwd = {}
-            for name, fn in (("kernel", group_norm_silu), ("plain", group_norm_silu_reference),
-                             ("library", library_group_norm_silu)):
-                fwd[name] = functools.partial(torch.no_grad()(fn), x, gamma, beta, GN_GROUPS, GN_EPS)
-            graphs = {}
-            for name, fn in (("plain", group_norm_silu_reference), ("library", library_group_norm_silu)):
+            fwd = {name: functools.partial(torch.no_grad()(fn), x, gamma, beta, GN_GROUPS, GN_EPS)
+                   for name, fn in fns.items()}
+            bwd = {}
+            for name, fn in fns.items():
                 leaves = [t.detach().clone().requires_grad_() for t in (x, gamma, beta)]
-                graphs[name] = (fn(*leaves, GN_GROUPS, GN_EPS), leaves)
-            bwd = {
-                "kernel": lambda: _backward(x, gamma, beta, dy, GN_GROUPS, GN_EPS),
-                **{
-                    name: functools.partial(torch.autograd.grad, y, leaves, dy, retain_graph=True)
-                    for name, (y, leaves) in graphs.items()
-                },
-            }
+                y = fn(*leaves, GN_GROUPS, GN_EPS)
+                bwd[name] = functools.partial(
+                    torch.autograd.grad, y, leaves, dy, retain_graph=True)
             n = x.numel()
-            for direction, fns in (("fwd", fwd), ("bwd", bwd)):
-                ms = np.array(in_turns(fns["kernel"], fns["plain"], fns["library"], 10))
+            for direction, timed in (("fwd", fwd), ("bwd", bwd)):
+                ms = in_turns(timed, 10)
                 tensors = 2 if direction == "fwd" else 3  # x, y / x, dy, dx
                 nbytes = tensors * n * x.element_size()
-                call_bound = bytes_ms(nbytes)
                 log(
-                    f"phase 4: group_norm_silu {direction} {(TRAIN_BATCH, hw, c)} "
-                    f"{str(dtype)[6:]}: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
-                    f"F.silu(F.group_norm) {ms[2]:.4f} ms per call; bound {call_bound:.4f} ms"
+                    f"phase 4: group_norm_silu {direction} {(TRAIN_BATCH, hw, c)} {dname}: "
+                    + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
+                    + f" per call; bound {bytes_ms(nbytes):.4f} ms"
                 )
+                step = per_step.setdefault((direction, dname), dict.fromkeys(ms, 0.0))
+                for name, t in ms.items():
+                    step[name] += calls * t
                 if dtype == torch.float32:
-                    per_step[direction] += calls * ms
                     step_bytes[direction] += calls * nbytes
-            del x, dy, graphs, fwd, bwd
+            del x, dy, fwd, bwd
     torch.cuda.empty_cache()
     out = {}
     for direction, err in (("fwd", fwd_err), ("bwd", bwd_err)):
         bound = bytes_ms(step_bytes[direction])
-        k, p, lib = per_step[direction]
-        out[direction] = dict(max_abs_err=err, ms=float(k), plain_ms=float(p), bound_ms=bound,
-                              bound_by="bytes", library_ms=float(lib))
+        ms = per_step[direction, "f32"]
         log(
             f"phase 4: group_norm_silu {direction}, the 18 calls of one f32 train step: "
-            f"kernel {k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound {bound:.4f} ms "
-            f"(bytes: {step_bytes[direction] / 1e9:.3f} GB)"
+            + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
+            + f"; bound {bound:.4f} ms (bytes: {step_bytes[direction] / 1e9:.3f} GB); "
+            f"in bf16: kernel {per_step[direction, 'bf16']['kernel']:.4f} ms"
         )
+        out[direction] = dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                              bound_ms=bound, bound_by="bytes", library_ms=ms["library"])
+        if earlier is not None:
+            out[direction]["earlier_ms"] = ms["earlier"]
     return out
 
 
@@ -675,6 +728,10 @@ def phase_diffusion_train(device, results):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", metavar="TREE",
+                        help="also time the kernels of this checkout, as `earlier`")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -687,21 +744,27 @@ def main():
     device = cuda_device()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    builds = [build_flash, build_group_norm]
+    earlier = None
+    if args.against:
+        earlier = load_ops(args.against)
+        builds += [importlib.import_module(f"earlier_ops.{name}").build
+                   for name in ("flash_attention", "fused_norm")]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        libs = list(pool.map(lambda build: build(), (build_flash, build_group_norm)))
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, started together
+        libs = list(pool.map(lambda build: build(), builds))
     log(f"set-up: kernels built in {time.perf_counter() - t0:.1f} s")
-    for lib in libs:
+    for lib in libs[:2]:
         log(f"  {lib}")
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log("  nvcc: " + line.strip())
 
     results = Path(__file__).resolve().parent / "results" / "chip_smoke"
     shutil.rmtree(results, ignore_errors=True)
     try:
         t0 = time.perf_counter()
-        err, (kernel_ms, plain_ms, library_ms) = phase_kernel(device)
+        err, flash_ms = phase_kernel(device, earlier)
         log(f"phase 1 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         launches = phase_sampler(device)
@@ -710,7 +773,7 @@ def main():
         phase_predictor(device)
         log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        gn = phase_group_norm(device)
+        gn = phase_group_norm(device, earlier)
         log(f"phase 4 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         f32_ms, bf16_ms, (_, gn_fwd, gn_bwd) = phase_regression_train(device, results)
@@ -725,7 +788,14 @@ def main():
         shutil.rmtree(results, ignore_errors=True)
 
     bh, nq, nk, d = FLASH_SHAPE
-    flash_bound, flash_by = bound_ms(4 * (2 * bh * nq * d + 2 * bh * nk * d), 4 * bh * nq * nk * d)
+    # the function's two products, 4 BH Nq Nk D operations, at the rate of
+    # the unit that runs them; the kernel's 3xTF32 does three times as many
+    flash_ops = 4 * bh * nq * nk * d
+    flash_bound, flash_by = bound_ms(
+        4 * (2 * bh * nq * d + 2 * bh * nk * d), flash_ops, TF32_TENSOR_FLOPS)
+    log(f"flash bound {flash_bound:.4f} ms ({flash_by}: {flash_ops / 1e9:.3f} GFLOP at the "
+        f"TF32 tensor-core peak); the 3xTF32 method's own floor "
+        f"{3 * flash_ops / TF32_TENSOR_FLOPS * 1e3:.4f} ms")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -737,8 +807,11 @@ def main():
             "name": "flash_attention", "route": "cuda",
             "source": "fea_tpu_torch/csrc/flash_attention.cu",
             "replaces": "fea_tpu/ops/flash_attention.py:26",
-            "launches": launches, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": flash_bound, "bound_by": flash_by, "library_ms": library_ms,
+            "launches": launches, "max_abs_err": err, "ms": flash_ms["kernel"],
+            "plain_ms": flash_ms["plain"], "bound_ms": flash_bound, "bound_by": flash_by,
+            "library_ms": flash_ms["library"], "bound_unit": "tensor cores, TF32 at 495 TFLOP/s",
+            **({"earlier_ms": flash_ms["earlier"]} if earlier is not None else {}),
+            "redesigned": REDESIGNED["flash_attention"],
         },
         {
             "name": "group_norm_silu_fwd", "route": "cuda", "source": gn_source,
@@ -747,6 +820,7 @@ def main():
         {
             "name": "group_norm_silu_bwd", "route": "cuda", "source": gn_source,
             "replaces": "fea_tpu/ops/fused_norm.py:132", "launches": gn_bwd, **gn["bwd"],
+            "redesigned": REDESIGNED["group_norm_silu_bwd"],
         },
     ]}))
     log(json.dumps({"ok": True, "device": {

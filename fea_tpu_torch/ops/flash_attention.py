@@ -5,6 +5,10 @@ hand-written CUDA kernel `csrc/flash_attention.cu` for CUDA tensors and
 takes the plain PyTorch version `flash_attention_reference` for CPU
 tensors, which is how the CPU tests reach it. There is no fallback: a CUDA
 tensor the kernel does not take raises.
+
+The kernel runs both products on the tensor cores: f32 inputs in 3xTF32
+(each operand split into TF32 hi and lo parts, hi*lo + lo*hi + hi*hi summed
+in f32), bf16 inputs as bf16 products with P split into bf16 hi and lo.
 """
 
 import ctypes
@@ -76,6 +80,9 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        # the kernel copies K/V rows in 16-byte pieces
+        raise ValueError("flash_attention takes q, k, v that start on 16-byte boundaries")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         # the kernel's output has no grad_fn: training would lose the
         # attention's gradients without a word

@@ -7,12 +7,17 @@ the plain PyTorch version `group_norm_silu_reference`, through which
 autograd runs. There is no fallback: a CUDA tensor the kernels do not take
 raises.
 
-x is (B, C, H, W), as the port's blocks hold activations: an NCHW view of
-channels-last memory (what the convolutions return) or a contiguous NCHW
-tensor; y comes back in x's layout. Statistics are f32 whatever x's type,
-with var = max(E[x^2] - mean^2, 0) and flax's eps 1e-6. As in fea_tpu the
-forward keeps only x, gamma and beta, and the backward recomputes the
-statistics; it returns dx in x's type and dgamma, dbeta in gamma's type.
+x is contiguous (B, C, H, W), the layout every model path gives it (the
+attention and space-to-depth steps return contiguous NCHW, and the
+convolutions keep their input's layout); y and dx come back the same. dy
+may have any strides for which H and W flatten. Statistics are f32
+whatever x's type, with
+var = max(E[x^2] - mean^2, 0) and flax's eps 1e-6. Unlike
+fea_tpu, whose backward recomputes the statistics from x, the forward saves
+its per-channel coefficients (a, b, mean, rstd) beside x and gamma (B * C *
+16 bytes a call), and the backward reads them: the same numbers, from the
+same kernel, and one pass over x fewer. The backward returns dx in x's type
+and dgamma, dbeta in gamma's type.
 """
 
 import ctypes
@@ -27,10 +32,12 @@ from torch.autograd.function import once_differentiable
 from ._build import build_library
 
 DTYPES = (torch.float32, torch.bfloat16)
-# blocks to aim for per SM in the partial-sum pass, and the fewest rows of
-# HW a block reduces (channels-last blocks walk them in 8 lanes)
+# blocks to aim for per SM in the partial-sum passes, the fewest positions
+# a forward block reduces, and the fewest vectors each backward thread walks
 BLOCKS_PER_SM = 8
-MIN_ROWS = {True: 64, False: 1024}
+MIN_ROWS = 1024
+MIN_VECTORS_PER_THREAD = 16
+THREADS = 256  # a block
 
 
 def group_norm_silu_reference(x, gamma, beta, num_groups: int = 8, eps: float = 1e-6):
@@ -57,11 +64,11 @@ def _library():
     lib = ctypes.CDLL(str(build()))
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.fea_group_norm_silu_fwd.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
+        p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
     ]
     lib.fea_group_norm_silu_fwd.restype = i
     lib.fea_group_norm_silu_bwd.argtypes = [
-        p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, f, p,
+        p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, p,
     ]
     lib.fea_group_norm_silu_bwd.restype = i
     lib.fea_cuda_error_string.argtypes = [i]
@@ -74,17 +81,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _layout(x) -> bool:
-    """True for channels-last memory, False for contiguous NCHW; any other
-    stride pattern raises (the kernels copy nothing)."""
-    if x.is_contiguous(memory_format=torch.channels_last):
-        return True
-    if x.is_contiguous():
-        return False
-    raise ValueError(
-        f"group_norm_silu takes channels-last or contiguous NCHW x; got strides "
-        f"{x.stride()} for shape {tuple(x.shape)}"
-    )
+def _layout(x):
+    """Raises unless x is contiguous NCHW (the kernels copy nothing)."""
+    if not x.is_contiguous():
+        raise ValueError(
+            f"group_norm_silu takes contiguous NCHW x; got strides {x.stride()} "
+            f"for shape {tuple(x.shape)}"
+        )
 
 
 def _check_cuda_inputs(x, gamma, beta, num_groups):
@@ -111,17 +114,32 @@ def _check_cuda_inputs(x, gamma, beta, num_groups):
         raise ValueError(f"batch {x.shape[0]} exceeds the grid's 65535")
 
 
-def _partition(x, channels_last: bool):
-    """Chunks of HW for the partial-sum pass and the rows in each: enough
-    blocks for BLOCKS_PER_SM per SM, each over at least MIN_ROWS rows."""
-    b, c, h, w = x.shape
+def _partition(x, blocks_per_chunk: int, min_rows: int):
+    """Chunks of HW for a partial-sum pass and the rows in each: enough
+    blocks for BLOCKS_PER_SM per SM, each over at least `min_rows` rows."""
+    b, _, h, w = x.shape
     hw = h * w
-    blocks_per_chunk = b * (math.ceil(c / 32) if channels_last else c)
     target = BLOCKS_PER_SM * _sm_count(x.device.index or 0)
-    chunks = max(1, min(math.ceil(target / blocks_per_chunk),
-                        math.ceil(hw / MIN_ROWS[channels_last])))
+    chunks = max(1, min(math.ceil(target / (b * blocks_per_chunk)), math.ceil(hw / min_rows)))
     rows = math.ceil(hw / chunks)
     return math.ceil(hw / rows), rows
+
+
+def _vector_width(x, dy, dx, dy_strides) -> int:
+    """Positions each backward thread loads at once: the widest of 16 bytes
+    (4 f32 or 8 bf16), 2 and 1 that divides HW, with dy's position stride 1,
+    its other strides multiples of it, and x, dy and dx aligned to it."""
+    size = x.element_size()
+    hw = x.shape[2] * x.shape[3]
+    sb, sc, sp = dy_strides
+    for vec in (8, 4, 2, 1):
+        if vec * size > 16:
+            continue
+        if vec == 1 or (
+            hw % vec == 0 and sp == 1 and sb % vec == 0 and sc % vec == 0
+            and all(t.data_ptr() % (vec * size) == 0 for t in (x, dy, dx))
+        ):
+            return vec
 
 
 def _dy_strides(dy, shape):
@@ -144,76 +162,83 @@ def _raise_on(err, what):
         )
 
 
-def _scratch(x, chunks):
-    b, c = x.shape[:2]
+def _forward(x, gamma, beta, num_groups, eps):
+    """y, and coef (B, C, 4) f32: (a, b, mean, rstd) with z = x a + b."""
+    _layout(x)
+    b, c, h, w = x.shape
+    chunks, rows = _partition(x, c, MIN_ROWS)
     partial = torch.empty((b, chunks, c, 2), device=x.device, dtype=torch.float32)
     coef = torch.empty((b, c, 4), device=x.device, dtype=torch.float32)
-    return partial, coef
-
-
-def _forward(x, gamma, beta, num_groups, eps):
-    channels_last = _layout(x)
-    b, c, h, w = x.shape
-    chunks, rows = _partition(x, channels_last)
-    partial, coef = _scratch(x, chunks)
     gamma32, beta32 = gamma.float().contiguous(), beta.float().contiguous()
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _library().fea_group_norm_silu_fwd(
             x.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), y.data_ptr(),
             partial.data_ptr(), coef.data_ptr(), b, c, h * w, num_groups, chunks, rows,
-            int(channels_last), int(x.dtype == torch.bfloat16), eps,
+            int(x.dtype == torch.bfloat16), eps,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _raise_on(err, "forward")
     group_norm_silu.launches_fwd += 1
-    return y
+    return y, coef
 
 
-def _backward(x, gamma, beta, dy, num_groups, eps):
+def _backward(x, gamma, coef, dy, num_groups):
+    """dx in x's type, and dgamma, dbeta in f32, from x, gamma, the
+    forward's coef and dy."""
     if dy.dtype != x.dtype or dy.shape != x.shape or dy.device != x.device:
         raise ValueError(
             f"dy {dy.dtype} {tuple(dy.shape)} on {dy.device} does not match x "
             f"{x.dtype} {tuple(x.shape)} on {x.device}"
         )
-    channels_last = _layout(x)
-    dy_sb, dy_sc, dy_sp = _dy_strides(dy, x.shape)
+    _layout(x)
     b, c, h, w = x.shape
-    chunks, rows = _partition(x, channels_last)
-    partial, coef = _scratch(x, chunks)
-    group_means = torch.empty((b, num_groups, 2), device=x.device, dtype=torch.float32)
-    dgamma_b = torch.empty((b, c), device=x.device, dtype=torch.float32)
-    dbeta_b = torch.empty((b, c), device=x.device, dtype=torch.float32)
-    gamma32, beta32 = gamma.float().contiguous(), beta.float().contiguous()
+    if coef.shape != (b, c, 4) or coef.dtype != torch.float32 or not coef.is_contiguous():
+        raise ValueError(f"coef {coef.dtype} {tuple(coef.shape)} is not the forward's ({b}, {c}, 4)")
+    dy_strides = _dy_strides(dy, x.shape)
     dx = torch.empty_like(x)
+    vec = _vector_width(x, dy, dx, dy_strides)
+    # a block per channel, its threads on vectors of positions
+    chunks, rows = _partition(x, c, MIN_VECTORS_PER_THREAD * THREADS * vec)
+    rows = math.ceil(rows / vec) * vec  # chunks start on a vector
+    chunks = math.ceil(h * w / rows)
+    partial = torch.empty((b, chunks, c, 2), device=x.device, dtype=torch.float32)
+    group_means = torch.empty((b, num_groups, 2), device=x.device, dtype=torch.float32)
+    # dgamma, dbeta and their per-batch partials, f32
+    grads = torch.empty((2 + 2 * b, c), device=x.device, dtype=torch.float32)
+    gamma32 = gamma.float().contiguous()
+    # this call's last-block tickets: zeroed words from the stream's own
+    # allocations, so calls on other streams cannot share them
+    tickets = torch.zeros(b + 1, device=x.device, dtype=torch.int32)
     with torch.cuda.device(x.device):
         err = _library().fea_group_norm_silu_bwd(
-            x.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), dgamma_b.data_ptr(), dbeta_b.data_ptr(), partial.data_ptr(),
-            coef.data_ptr(), group_means.data_ptr(), b, c, h * w, num_groups, chunks,
-            rows, int(channels_last), dy_sb, dy_sc, dy_sp,
-            int(x.dtype == torch.bfloat16), eps,
+            x.data_ptr(), gamma32.data_ptr(), coef.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
+            grads[2 + b].data_ptr(), partial.data_ptr(),
+            group_means.data_ptr(), tickets.data_ptr(), b, c, h * w,
+            num_groups, chunks, rows, vec, *dy_strides,
+            int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _raise_on(err, "backward")
     group_norm_silu.launches_bwd += 1
-    # per-batch partials summed outside the kernel, as fea_tpu does
-    return dx, dgamma_b.sum(0).to(gamma.dtype), dbeta_b.sum(0).to(beta.dtype)
+    return dx, grads[0], grads[1]
 
 
 class _GroupNormSiLU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, num_groups, eps):
-        ctx.save_for_backward(x, gamma, beta)
-        ctx.num_groups, ctx.eps = num_groups, eps
-        return _forward(x, gamma, beta, num_groups, eps)
+        y, coef = _forward(x, gamma, beta, num_groups, eps)
+        ctx.save_for_backward(x, gamma, coef)
+        ctx.num_groups, ctx.beta_dtype = num_groups, beta.dtype
+        return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, gamma, beta = ctx.saved_tensors
-        dx, dgamma, dbeta = _backward(x, gamma, beta, dy, ctx.num_groups, ctx.eps)
-        return dx, dgamma, dbeta, None, None
+        x, gamma, coef = ctx.saved_tensors
+        dx, dgamma, dbeta = _backward(x, gamma, coef, dy, ctx.num_groups)
+        return dx, dgamma.to(gamma.dtype), dbeta.to(ctx.beta_dtype), None, None
 
 
 def group_norm_silu(x, gamma, beta, num_groups: int = 8, eps: float = 1e-6):
