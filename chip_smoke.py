@@ -27,7 +27,9 @@ Phase 4: the GroupNorm+SiLU kernels, forward and forward+backward, against
          x with f32 params and bf16 x with bf16 params; timed at batch 16
          beside the plain version and F.silu(F.group_norm(...)), each
          backward through autograd (the kernel's reads the forward's saved
-         coefficients).
+         coefficients), and at batches 2 and 4 the kernels alone; each
+         timed shape's line names the route the forward took (one cluster
+         per (b, group) with x read once, or two launches).
 Phase 5: the regression Trainer at full width (input_dim 64, 4 stages,
          256 px, batch 16, EMA, all three Adam chains) on a seeded synthetic
          dataset: train() takes a warm-up step and 3 more in f32 (18 + 18
@@ -55,6 +57,7 @@ import copy
 import functools
 import importlib
 import importlib.util
+import itertools
 import json
 import math
 import shutil
@@ -83,6 +86,8 @@ CPU_ATOL = 1e-4  # card vs CPU on a small input, f32 without TF32
 # the redesigned kernels' designs, for the kernels line
 REDESIGNED = {
     "flash_attention": "tensor-core mma.sync, 3xTF32 for f32",
+    "group_norm_silu_fwd": "x read once into a thread-block cluster's shared memory; "
+                           "two launches with 16-byte vectors where a group does not fit",
     "group_norm_silu_bwd": "two launches over the forward's saved coefficients",
 }
 
@@ -123,6 +128,14 @@ def in_turns(fns, iters):
     for name in names + names[::-1]:
         ms[name] += cuda_ms(fns[name], iters) / 2
     return ms
+
+
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
 
 
 def load_ops(tree):
@@ -451,7 +464,9 @@ def phase_group_norm(device, earlier):
     time beside it, the library chain and, given `earlier` (another tree's
     ops), its kernels, at the stage shapes; per-step sums for the kernels'
     rows."""
-    from fea_tpu_torch.ops.fused_norm import group_norm_silu, group_norm_silu_reference
+    from fea_tpu_torch.ops.fused_norm import (
+        forward_plan, group_norm_silu, group_norm_silu_reference, resident_clusters,
+    )
 
     shapes = [(b, hw, c) for b in GN_BATCHES for hw, c in GN_STAGE_CALLS] + [GN_RAGGED]
     fwd_err = bwd_err = 0.0
@@ -492,32 +507,43 @@ def phase_group_norm(device, earlier):
     if earlier is not None:
         fns["earlier"] = earlier.group_norm_silu
     # ms per f32 / bf16 train step (its 18 calls) by (direction, dtype), a
-    # dict by name as fns
+    # dict by name as fns; at the other batches only the kernels are timed
     per_step = {}
     step_bytes = {"fwd": 0, "bwd": 0}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:].replace("float", "f")
-        for (hw, c), calls in GN_STAGE_CALLS.items():
-            x, gamma, beta, dy = gn_case(device, TRAIN_BATCH, hw, c, dtype, SEED)
+        for batch, ((hw, c), calls) in itertools.product(GN_BATCHES, GN_STAGE_CALLS.items()):
+            x, gamma, beta, dy = gn_case(device, batch, hw, c, dtype, SEED)
             gamma, beta = gamma.to(dtype), beta.to(dtype)  # as the bf16 trainer passes them
+            plan = forward_plan(x, GN_GROUPS)
+            route = plan.route.replace("_", "-")
+            if plan.cluster:
+                route += (f" of {plan.cluster} blocks x {plan.smem_bytes} bytes, "
+                          f"{resident_clusters(plan, x)} clusters resident")
+            timed = fns if batch == TRAIN_BATCH else {
+                name: fn for name, fn in fns.items() if name in ("kernel", "earlier")}
             fwd = {name: functools.partial(torch.no_grad()(fn), x, gamma, beta, GN_GROUPS, GN_EPS)
-                   for name, fn in fns.items()}
+                   for name, fn in timed.items()}
             bwd = {}
-            for name, fn in fns.items():
+            for name, fn in timed.items():
                 leaves = [t.detach().clone().requires_grad_() for t in (x, gamma, beta)]
                 y = fn(*leaves, GN_GROUPS, GN_EPS)
                 bwd[name] = functools.partial(
                     torch.autograd.grad, y, leaves, dy, retain_graph=True)
             n = x.numel()
-            for direction, timed in (("fwd", fwd), ("bwd", bwd)):
-                ms = in_turns(timed, 10)
+            for direction, turn in (("fwd", fwd), ("bwd", bwd)):
+                ms = in_turns(turn, 10)
                 tensors = 2 if direction == "fwd" else 3  # x, y / x, dy, dx
                 nbytes = tensors * n * x.element_size()
                 log(
-                    f"phase 4: group_norm_silu {direction} {(TRAIN_BATCH, hw, c)} {dname}: "
+                    f"phase 4: group_norm_silu {direction} {(batch, hw, c)} {dname}: "
                     + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
-                    + f" per call; bound {bytes_ms(nbytes):.4f} ms"
+                    + f" per call; bound {bytes_ms(nbytes):.4f} ms; the kernel moves "
+                    f"{nbytes / ms['kernel'] / 1e9:.3f} TB/s of the bound's bytes"
+                    + (f"; forward route: {route}" if direction == "fwd" else "")
                 )
+                if batch != TRAIN_BATCH:
+                    continue
                 step = per_step.setdefault((direction, dname), dict.fromkeys(ms, 0.0))
                 for name, t in ms.items():
                     step[name] += calls * t
@@ -796,11 +822,7 @@ def main():
     log(f"flash bound {flash_bound:.4f} ms ({flash_by}: {flash_ops / 1e9:.3f} GFLOP at the "
         f"TF32 tensor-core peak); the 3xTF32 method's own floor "
         f"{3 * flash_ops / TF32_TENSOR_FLOPS * 1e3:.4f} ms")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    log(smi)
+    log(nvidia_smi())
     gn_source = "fea_tpu_torch/csrc/group_norm_silu.cu"
     log(json.dumps({"kernels": [
         {
@@ -816,6 +838,7 @@ def main():
         {
             "name": "group_norm_silu_fwd", "route": "cuda", "source": gn_source,
             "replaces": "fea_tpu/ops/fused_norm.py:115", "launches": gn_fwd, **gn["fwd"],
+            "redesigned": REDESIGNED["group_norm_silu_fwd"],
         },
         {
             "name": "group_norm_silu_bwd", "route": "cuda", "source": gn_source,

@@ -21,15 +21,41 @@
 // element against 4-12 bytes of it. At the decoder's stage shapes x does
 // not fit the 50 MB L2, so every pass over it comes from HBM.
 //
-// Forward: three launches.
-//   1. stats partials: grid (channel, HW chunk, b); each block sums one
-//      chunk of one channel's positions over 256 threads into an f32 buffer
-//      (B, chunks, C), in a fixed order and without atomics.
-//   2. finalize: one block per (group, b) writes per-channel coefficients
-//      coef[b, c] = (a, b, mean, rstd) with z = x a + b.
-//   3. apply: an elementwise pass in memory order.
-// It reads x twice and writes y once. coef (B * C * 16 bytes) is kept for
-// the backward.
+// Forward: two routes, chosen on the host from the shape, the type and the
+// device's limits (fused_norm.py:forward_route). Both write coef[b, c] =
+// (a, b, mean, rstd) with z = x a + b (B * C * 16 bytes), kept for the
+// backward, and both sum in a fixed order without floating-point atomics.
+//   cluster: x is read from HBM once. In NCHW the C/G channels of one
+//      (b, group) are one contiguous slab, and a slab is all that one mean
+//      and rstd depend on. A thread-block cluster of K blocks (K up to 16)
+//      takes one slab; each block copies its 1/K share into shared memory
+//      with 16-byte cp.async in four commit groups and sums x and x^2 in
+//      f32 as each group lands (a thread reads back only what it copied, so
+//      no block barrier stands between copy and sum). The blocks leave
+//      their sums in shared memory, meet at the cluster barrier, and each
+//      adds the K partial sums from the others' shared memory in rank
+//      order, so all hold the same mean and rstd. Each block then
+//      normalises its share out of shared memory and writes y with 16-byte
+//      stores; rank 0 writes the group's coef. One launch, and exactly the
+//      bytes the bound counts. With 64 KiB a block, three blocks share an
+//      SM and one's copy overlaps another's store. Where 1/16 of a slab is
+//      more than that (the 2 MiB f32 slabs of the first stage: 128 KiB), a
+//      block keeps 96 KiB, so that two still share an SM, and reads the
+//      rest twice, the second time soon after the first and mostly from L2.
+//   two-pass: for slabs of which a cluster's shared memory keeps too
+//      little and for HW or pointers that forbid 16-byte vectors. Launch 1, grid (channel,
+//      HW chunk, b): a block sums one chunk of one channel V positions at a
+//      time (V elements of 16 bytes where HW and x's alignment allow, else
+//      2 or 1) into one partial per (b, chunk, channel); the last block of
+//      each b to finish (an atomic ticket per b, this call's own, which
+//      that block resets to 0) reduces the partials in a fixed order and
+//      writes coef[b]. Launch 2 is a programmatic dependent launch with
+//      the same thread layout, the block's two coefficients in registers,
+//      walking the blocks and each chunk in reverse, so that it first
+//      reads what launch 1 read last and the L2 still holds. It reads x
+//      twice: 3/2 of the bytes the bound counts.
+// Both use __expf and an approximate divide in the sigmoid, as the backward
+// does when it recomputes z's sigmoid.
 //
 // Backward: two launches over the forward's coef; the statistics are not
 // recomputed (fea_tpu's backward recomputes them: here the forward's are
@@ -65,23 +91,13 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;         // a block of the two-pass kernels
+constexpr int kClusterThreads = 512;  // a block of the cluster kernel
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float sigmoid(float z) { return 1.f / (1.f + expf(-z)); }
 __device__ __forceinline__ float sigmoid_fast(float z) {
   return __fdividef(1.f, 1.f + __expf(-z));
 }
@@ -113,89 +129,6 @@ __device__ float2 block_sum2(float a, float b) {
   __syncthreads();
   return total;
 }
-
-// ---------------------------------------------------------------- forward
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    stats_partials(const T* __restrict__ x, float2* __restrict__ partial, int channels,
-                        int hw, int rows) {
-  const int c = blockIdx.x, chunk = blockIdx.y, b = blockIdx.z;
-  const int p_end = min(hw, (chunk + 1) * rows);
-  const T* xc = x + (static_cast<size_t>(b) * channels + c) * hw;
-  float a0 = 0.f, a1 = 0.f;
-  for (int p = chunk * rows + threadIdx.x; p < p_end; p += kThreads) {
-    const float v = to_f32(xc[p]);
-    a0 += v;
-    a1 += v * v;
-  }
-  const float2 s = block_sum2(a0, a1);
-  if (threadIdx.x == 0) partial[(static_cast<size_t>(b) * gridDim.y + chunk) * channels + c] = s;
-}
-
-// One block per (group, b): the group's mean and rstd from the partials,
-// then coef[b, c] = (rstd gamma, beta - mean rstd gamma, mean, rstd).
-__global__ void __launch_bounds__(kThreads)
-    stats_finalize(const float2* __restrict__ partial, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, float4* __restrict__ coef, int channels,
-                   int hw, int groups, int chunks, float eps) {
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int cg = channels / groups;
-  float s0 = 0.f, s1 = 0.f;
-  for (int i = threadIdx.x; i < cg * chunks; i += kThreads) {
-    const int c = g * cg + i / chunks, chunk = i % chunks;
-    const float2 v = partial[(static_cast<size_t>(b) * chunks + chunk) * channels + c];
-    s0 += v.x;
-    s1 += v.y;
-  }
-  const float2 s = block_sum2(s0, s1);
-  const float n = static_cast<float>(cg) * static_cast<float>(hw);
-  const float mean = s.x / n;
-  const float var = fmaxf(s.y / n - mean * mean, 0.f);
-  const float rstd = rsqrtf(var + eps);
-  for (int c = g * cg + threadIdx.x; c < (g + 1) * cg; c += kThreads) {
-    const float a = rstd * gamma[c];
-    coef[static_cast<size_t>(b) * channels + c] = make_float4(a, beta[c] - mean * a, mean, rstd);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    apply_fwd(const T* __restrict__ x, const float4* __restrict__ coef, T* __restrict__ y,
-              int channels, int hw, size_t total) {
-  const size_t per_b = static_cast<size_t>(channels) * hw;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; i < total;
-       i += static_cast<size_t>(gridDim.x) * kThreads) {
-    const size_t b = i / per_b;
-    const int r = static_cast<int>(i - b * per_b);  // 32-bit from here on
-    const int c = r / hw;
-    const float4 k = coef[b * channels + c];
-    const float z = to_f32(x[i]) * k.x + k.y;
-    y[i] = from_f32<T>(z * sigmoid(z));
-  }
-}
-
-int apply_blocks(size_t total) {
-  const size_t blocks = (total + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16);
-}
-
-template <typename T>
-int forward(const void* x, const float* gamma, const float* beta, void* y, float2* partial,
-            float4* coef, int batch, int channels, int hw, int groups, int chunks, int rows,
-            float eps, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  stats_partials<T><<<dim3(channels, chunks, batch), kThreads, 0, stream>>>(xt, partial, channels,
-                                                                          hw, rows);
-  stats_finalize<<<dim3(groups, batch), kThreads, 0, stream>>>(partial, gamma, beta, coef,
-                                                               channels, hw, groups, chunks, eps);
-  const size_t total = static_cast<size_t>(batch) * channels * hw;
-  apply_fwd<T><<<apply_blocks(total), kThreads, 0, stream>>>(xt, coef, static_cast<T*>(y),
-                                                             channels, hw, total);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// --------------------------------------------------------------- backward
 
 // V elements of x's type at p (aligned to V elements) as f32, and back.
 template <int V>
@@ -264,6 +197,387 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&in)[V]
   }
 }
 
+// The block that reaches a ticket's last count: every block bumps
+// tickets[i] once after its writes; the one that makes it `count` sees all
+// their writes (read them with __ldcg) and resets the ticket to 0.
+__device__ __forceinline__ bool last_to_arrive(unsigned int* ticket, unsigned int count) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == count - 1;
+    if (last) *ticket = 0;  // no other block touches it again in this launch
+  }
+  __syncthreads();
+  return last;
+}
+
+// A dependent of the launch before it in the stream: its blocks may start
+// as that launch's blocks retire, and wait for its results at
+// griddepcontrol.wait.
+template <typename Args>
+int launch_dependent(void (*kernel)(Args), dim3 grid, const Args& a, cudaStream_t stream) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a));
+}
+
+// f(std::integral_constant<int, vec>) for vec 8 (2-byte T only), 4, 2 or 1
+template <typename T, typename F>
+int with_vector(int vec, F&& f) {
+  switch (vec) {
+    case 8:
+      if constexpr (sizeof(T) == 2) return f(std::integral_constant<int, 8>{});
+      break;
+    case 4:
+      return f(std::integral_constant<int, 4>{});
+    case 2:
+      return f(std::integral_constant<int, 2>{});
+    case 1:
+      return f(std::integral_constant<int, 1>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------- forward
+
+struct FwdArgs {
+  const void* x;
+  void* y;
+  const float* gamma;
+  const float* beta;
+  float4* coef;           // (B, C): a, b, mean, rstd, kept for the backward
+  float2* partial;        // two-pass: (B, chunks, C) sums of x and x^2
+  unsigned int* tickets;  // two-pass: (B,), 0 between launches
+  int channels, hw, groups;
+  int rows;   // two-pass: positions in a chunk
+  int share;  // cluster: elements of the slab that each block takes,
+  int held;   // and how many of them it keeps in shared memory
+  float eps;
+};
+
+// mean and rstd of n elements from their sum and sum of squares
+__device__ __forceinline__ float2 mean_rstd(float s0, float s1, float n, float eps) {
+  const float mean = s0 / n;
+  const float var = fmaxf(s1 / n - mean * mean, 0.f);
+  return make_float2(mean, rsqrtf(var + eps));
+}
+
+// (rstd gamma, beta - mean rstd gamma, mean, rstd)
+__device__ __forceinline__ float4 coefficients(float2 m, float gamma, float beta) {
+  const float a = m.y * gamma;
+  return make_float4(a, beta - m.x * a, m.x, m.y);
+}
+
+// y = silu(x a + b) of V elements
+template <int V>
+__device__ __forceinline__ void silu_affine(const float (&x)[V], float a, float b,
+                                            float (&y)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float z = x[j] * a + b;
+    y[j] = z * sigmoid_fast(z);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void add_sums(const float (&x)[V], float& s0, float& s1) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    s0 += x[j];
+    s1 += x[j] * x[j];
+  }
+}
+
+// ------------------------------------------------- forward, cluster route
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The cluster's barrier, in its two halves: every thread of every block
+// arrives once and waits once per phase.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// *local as the block of rank `rank` in this cluster holds it
+__device__ __forceinline__ float2 cluster_load(const float2* local, unsigned rank) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(local));
+  unsigned remote;
+  float2 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// bytes of the per-channel (a, b) table ahead of the data in dynamic
+// shared memory (fused_norm.py:cluster_plans counts the same)
+__host__ __device__ constexpr int table_bytes(int cg) { return (cg * 8 + 15) & ~15; }
+
+constexpr int kCopyGroups = 4;
+
+// Grid (K, groups, B) in clusters of (K, 1, 1): cluster (g, b) takes the
+// slab of group g of batch element b, and the block of rank r its elements
+// [r share, (r + 1) share). share is a multiple of V = 16 bytes of T and so
+// are held and hw; x is aligned to 16 bytes. The block keeps the first
+// `held` elements of its share in shared memory; what is beyond them it
+// reads twice, for the sums and again, soon after and so mostly from L2,
+// for y. Thread t owns the vectors t, t + 512, ... of the share in every
+// pass.
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads) fwd_cluster(FwdArgs a) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 sums;   // this block's, read by the whole cluster
+  __shared__ float2 group;  // mean, rstd
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x, ranks = gridDim.x, g = blockIdx.y, b = blockIdx.z;
+  const int cg = a.channels / a.groups;
+  float2* table = reinterpret_cast<float2*>(smem);
+  T* data = reinterpret_cast<T*>(smem + table_bytes(cg));
+  const int e0 = rank * a.share;  // within the slab
+  const size_t off = (static_cast<size_t>(b) * a.channels + g * cg) * a.hw + e0;
+  const T* src = static_cast<const T*>(a.x) + off;
+  T* dst = static_cast<T*>(a.y) + off;
+  const int nvec = a.share / V, nheld = a.held / V;
+  // vectors in a commit group: a multiple of the block, so that a thread's
+  // vectors are t, t + 512, ... across the groups
+  const int per_group = (nheld + kCopyGroups * kClusterThreads - 1) /
+                        (kCopyGroups * kClusterThreads) * kClusterThreads;
+#pragma unroll
+  for (int s = 0; s < kCopyGroups; ++s) {
+    const int end = min(nheld, (s + 1) * per_group);
+    for (int v = s * per_group + tid; v < end; v += kClusterThreads) {
+      cp_async16(data + v * V, src + v * V);
+    }
+    cp_async_commit();
+  }
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll 4
+  for (int v = nheld + tid; v < nvec; v += kClusterThreads) {  // while the copies land
+    float xv[V];
+    load_vec<V>(src + v * V, xv);
+    add_sums<V>(xv, s0, s1);
+  }
+  auto add_group = [&](int s) {
+    const int end = min(nheld, (s + 1) * per_group);
+    for (int v = s * per_group + tid; v < end; v += kClusterThreads) {
+      float xv[V];
+      load_vec<V>(data + v * V, xv);
+      add_sums<V>(xv, s0, s1);
+    }
+  };
+  cp_async_wait<3>();
+  add_group(0);
+  cp_async_wait<2>();
+  add_group(1);
+  cp_async_wait<1>();
+  add_group(2);
+  cp_async_wait<0>();
+  add_group(3);
+  const float2 mine = block_sum2(s0, s1);
+  if (tid == 0) sums = mine;
+  cluster_arrive();
+  cluster_wait();  // every block's sums are written
+  if (tid < 32) {
+    const float2 v = tid < ranks ? cluster_load(&sums, tid) : make_float2(0.f, 0.f);
+    float t0 = 0.f, t1 = 0.f;
+    for (int r = 0; r < ranks; ++r) {  // in rank order, the same in every block
+      t0 += __shfl_sync(0xffffffffu, v.x, r);
+      t1 += __shfl_sync(0xffffffffu, v.y, r);
+    }
+    if (tid == 0) {
+      group = mean_rstd(t0, t1, static_cast<float>(cg) * static_cast<float>(a.hw), a.eps);
+    }
+  }
+  cluster_arrive();  // this block has read the others' sums; waited for at the end
+  __syncthreads();
+  const float2 m = group;
+  for (int c = tid; c < cg; c += kClusterThreads) {
+    const float4 k = coefficients(m, a.gamma[g * cg + c], a.beta[g * cg + c]);
+    table[c] = make_float2(k.x, k.y);
+    if (rank == 0) a.coef[static_cast<size_t>(b) * a.channels + g * cg + c] = k;
+  }
+  __syncthreads();
+  // y of the vector v of the share, whose x is at p
+  auto emit = [&](const T* p, int v) {
+    const float2 k = table[(e0 + v * V) / a.hw];
+    float xv[V], out[V];
+    load_vec<V>(p, xv);
+    silu_affine<V>(xv, k.x, k.y, out);
+    store_vec<V>(dst + v * V, out);
+  };
+#pragma unroll 4
+  for (int v = nheld + tid; v < nvec; v += kClusterThreads) emit(src + v * V, v);
+#pragma unroll 4
+  for (int v = tid; v < nheld; v += kClusterThreads) emit(data + v * V, v);
+  cluster_wait();  // no block leaves while another may still read its sums
+}
+
+struct ClusterLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int cluster, int groups, int batch, int smem, cudaStream_t stream) : cfg{} {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(cluster, groups, batch);
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+// The kernel allowed `smem` bytes of dynamic shared memory and, above the
+// portable 8, this cluster size.
+template <typename T>
+cudaError_t allow_cluster(int cluster, int smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(fwd_cluster<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cluster > 8) {
+    err = cudaFuncSetAttribute(fwd_cluster<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return err;
+}
+
+template <typename T>
+int forward_cluster(const FwdArgs& a, int batch, int cluster, int smem, cudaStream_t stream) {
+  const cudaError_t err = allow_cluster<T>(cluster, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch launch(cluster, a.groups, batch, smem, stream);
+  return static_cast<int>(cudaLaunchKernelEx(&launch.cfg, fwd_cluster<T>, a));
+}
+
+// Clusters of this size and shared memory that the card holds at once
+template <typename T>
+int resident_clusters(int cluster, int smem, int* count) {
+  const cudaError_t err = allow_cluster<T>(cluster, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch launch(cluster, 1, 1, smem, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(count, fwd_cluster<T>, &launch.cfg));
+}
+
+// ------------------------------------------------ forward, two-pass route
+
+// One block per (channel, chunk, b), its threads on the chunk's positions V
+// at a time (rows is a multiple of V, and so is HW where V > 1). The last
+// block of batch element b to finish sums b's partials, a warp per group
+// and in a fixed order, and writes coef[b].
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) fwd_stats(FwdArgs a) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int c = blockIdx.x, chunk = blockIdx.y, b = blockIdx.z;
+  const T* xc = static_cast<const T*>(a.x) + (static_cast<size_t>(b) * a.channels + c) * a.hw;
+  const int p_end = min(a.hw, (chunk + 1) * a.rows);
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll 4
+  for (int p = chunk * a.rows + threadIdx.x * V; p < p_end; p += kThreads * V) {
+    float xv[V];
+    load_vec<V>(xc + p, xv);
+    add_sums<V>(xv, s0, s1);
+  }
+  const float2 s = block_sum2(s0, s1);
+  const int chunks = gridDim.y;
+  if (threadIdx.x == 0) {
+    a.partial[(static_cast<size_t>(b) * chunks + chunk) * a.channels + c] = s;
+  }
+  if (!last_to_arrive(a.tickets + b, gridDim.x * gridDim.y)) return;
+  const int cg = a.channels / a.groups;
+  const float n = static_cast<float>(cg) * static_cast<float>(a.hw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < a.groups; g += kThreads / 32) {
+    float t0 = 0.f, t1 = 0.f;
+    for (int i = lane; i < cg * chunks; i += 32) {
+      const size_t at = (static_cast<size_t>(b) * chunks + i / cg) * a.channels + g * cg + i % cg;
+      const float2 v = __ldcg(a.partial + at);
+      t0 += v.x;
+      t1 += v.y;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      t0 += __shfl_xor_sync(0xffffffffu, t0, off);
+      t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+    }
+    const float2 m = mean_rstd(t0, t1, n, a.eps);
+    for (int ch = g * cg + lane; ch < (g + 1) * cg; ch += 32) {
+      a.coef[static_cast<size_t>(b) * a.channels + ch] = coefficients(m, a.gamma[ch], a.beta[ch]);
+    }
+  }
+}
+
+// The same grid walked backwards, and each chunk from its end.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) fwd_apply(FwdArgs a) {
+  const int c = gridDim.x - 1 - blockIdx.x;
+  const int chunk = gridDim.y - 1 - blockIdx.y, b = gridDim.z - 1 - blockIdx.z;
+  const size_t off = (static_cast<size_t>(b) * a.channels + c) * a.hw;
+  const T* xc = static_cast<const T*>(a.x) + off;
+  T* yc = static_cast<T*>(a.y) + off;
+  constexpr int kStep = kThreads * V;
+  const int p0 = chunk * a.rows + threadIdx.x * V, p_end = min(a.hw, (chunk + 1) * a.rows);
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // fwd_stats has finished
+  const float4 k = __ldcg(a.coef + static_cast<size_t>(b) * a.channels + c);
+  if (p0 >= p_end) return;
+#pragma unroll 4
+  for (int p = p0 + (p_end - 1 - p0) / kStep * kStep; p >= p0; p -= kStep) {
+    float xv[V], out[V];
+    load_vec<V>(xc + p, xv);
+    silu_affine<V>(xv, k.x, k.y, out);
+    store_vec<V>(yc + p, out);
+  }
+}
+
+template <typename T, int V>
+int forward_two_pass_v(const FwdArgs& a, int batch, int chunks, cudaStream_t stream) {
+  const dim3 grid(a.channels, chunks, batch);
+  fwd_stats<T, V><<<grid, kThreads, 0, stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_dependent(fwd_apply<T, V>, grid, a, stream);
+}
+
+template <typename T>
+int forward_two_pass(const FwdArgs& a, int batch, int chunks, int vec, cudaStream_t stream) {
+  return with_vector<T>(vec, [&](auto v) {
+    return forward_two_pass_v<T, decltype(v)::value>(a, batch, chunks, stream);
+  });
+}
+
+template <typename T>
+int forward(const FwdArgs& a, int batch, int cluster, int smem, int chunks, int vec,
+            cudaStream_t stream) {
+  return cluster > 0 ? forward_cluster<T>(a, batch, cluster, smem, stream)
+                     : forward_two_pass<T>(a, batch, chunks, vec, stream);
+}
+
+// --------------------------------------------------------------- backward
+
 struct BwdArgs {
   const void* x;
   const void* dy;
@@ -280,21 +594,6 @@ struct BwdArgs {
   int channels, hw, groups, rows;
   long long dy_sb, dy_sc, dy_sp;
 };
-
-// The block that reaches a ticket's last count: every block bumps
-// tickets[i] once after its writes; the one that makes it `count` sees all
-// their writes (read them with __ldcg) and resets the ticket to 0.
-__device__ __forceinline__ bool last_to_arrive(unsigned int* ticket, unsigned int count) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(ticket, 1u) == count - 1;
-    if (last) *ticket = 0;  // no other block touches it again in this launch
-  }
-  __syncthreads();
-  return last;
-}
 
 // dz = dy s (1 + z (1 - s)) of one element, and its xh
 __device__ __forceinline__ float2 dz_xh(float x, float g, float4 k) {
@@ -430,56 +729,64 @@ template <typename T, int V>
 int backward_v(const BwdArgs& a, int batch, int chunks, cudaStream_t stream) {
   const dim3 grid(a.channels, chunks, batch);
   bwd_partials<T, V><<<grid, kThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, bwd_apply<T, V>, a));
+  return launch_dependent(bwd_apply<T, V>, grid, a, stream);
 }
 
 template <typename T>
 int backward(const BwdArgs& a, int batch, int chunks, int vec, cudaStream_t stream) {
-  switch (vec) {
-    case 8:
-      if constexpr (sizeof(T) == 2) return backward_v<T, 8>(a, batch, chunks, stream);
-      break;
-    case 4:
-      return backward_v<T, 4>(a, batch, chunks, stream);
-    case 2:
-      return backward_v<T, 2>(a, batch, chunks, stream);
-    case 1:
-      return backward_v<T, 1>(a, batch, chunks, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_vector<T>(vec, [&](auto v) {
+    return backward_v<T, decltype(v)::value>(a, batch, chunks, stream);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// partial: (batch, chunks, channels) float2 scratch; coef: (batch,
-// channels) float4 output, kept for the backward; chunks * rows >= hw >
-// (chunks - 1) * rows. Returns the launches' cudaError_t.
+// y and coef (batch, channels) float4 are the outputs. cluster > 0 takes
+// the cluster route: (channels / groups) * hw elements, a multiple of
+// cluster * 16 bytes, split over clusters of that many blocks, each with
+// `smem` bytes of dynamic shared memory (the (a, b) table of channels /
+// groups float2, rounded up to 16 bytes, then a multiple of 16 bytes: as
+// much of its share of the slab as it keeps there, all of it or less); hw
+// is a multiple of 16 bytes of elements and x is aligned to 16 bytes. cluster
+// == 0 takes the two-pass route: partial is (batch, chunks, channels)
+// float2 scratch, tickets (batch,) zeroed words, this call's own, left
+// zeroed; chunks * rows >= hw > (chunks - 1) * rows; vec as the backward's,
+// for x and y. Returns the launches' cudaError_t.
 int fea_group_norm_silu_fwd(const void* x, const float* gamma, const float* beta, void* y,
-                            void* partial, void* coef, int batch, int channels, int hw,
-                            int groups, int chunks, int rows, int bf16, float eps,
-                            void* stream) {
+                            void* coef, void* partial, void* tickets, int batch, int channels,
+                            int hw, int groups, int cluster, int smem, int chunks, int rows,
+                            int vec, int bf16, float eps, void* stream) {
+  const int cg = channels / groups;
+  const int share = cluster > 0 ? cg * hw / cluster : 0;
+  const int held = cluster > 0 ? (smem - table_bytes(cg)) / (bf16 ? 2 : 4) : 0;
+  const FwdArgs a{x,
+                  y,
+                  gamma,
+                  beta,
+                  static_cast<float4*>(coef),
+                  static_cast<float2*>(partial),
+                  static_cast<unsigned int*>(tickets),
+                  channels,
+                  hw,
+                  groups,
+                  rows,
+                  share,
+                  held < share ? held : share,
+                  eps};
   auto s = static_cast<cudaStream_t>(stream);
-  auto p = static_cast<float2*>(partial);
-  auto k = static_cast<float4*>(coef);
-  if (bf16) {
-    return forward<__nv_bfloat16>(x, gamma, beta, y, p, k, batch, channels, hw, groups, chunks,
-                                  rows, eps, s);
-  }
-  return forward<float>(x, gamma, beta, y, p, k, batch, channels, hw, groups, chunks, rows, eps,
-                        s);
+  return bf16 ? forward<__nv_bfloat16>(a, batch, cluster, smem, chunks, vec, s)
+              : forward<float>(a, batch, cluster, smem, chunks, vec, s);
+}
+
+// *count: the clusters of `cluster` blocks with `smem` bytes of dynamic
+// shared memory each that the current device holds at once.
+int fea_group_norm_silu_fwd_resident_clusters(int cluster, int smem, int bf16, int* count) {
+  return bf16 ? resident_clusters<__nv_bfloat16>(cluster, smem, count)
+              : resident_clusters<float>(cluster, smem, count);
 }
 
 // x and coef as the forward's; dy's strides (batch, channel, flattened

@@ -12,7 +12,16 @@ attention and space-to-depth steps return contiguous NCHW, and the
 convolutions keep their input's layout); y and dx come back the same. dy
 may have any strides for which H and W flatten. Statistics are f32
 whatever x's type, with
-var = max(E[x^2] - mean^2, 0) and flax's eps 1e-6. Unlike
+var = max(E[x^2] - mean^2, 0) and flax's eps 1e-6.
+
+The forward has two routes, which `forward_route` chooses on the host from
+the shape, the type, x's address and the device's limits. On the cluster
+route one thread-block cluster per (b, group) keeps the group's slab of x
+in shared memory across its blocks, so x comes from device memory once (one
+launch). The two-pass route (statistics with a last-block finalize, then a
+dependent apply launch) takes what the first cannot: slabs too large for a
+cluster, HW that is no multiple of 16 bytes of elements, unaligned views.
+Both give the same bits from run to run. Unlike
 fea_tpu, whose backward recomputes the statistics from x, the forward saves
 its per-channel coefficients (a, b, mean, rstd) beside x and gamma (B * C *
 16 bytes a call), and the backward reads them: the same numbers, from the
@@ -24,6 +33,7 @@ import ctypes
 import functools
 import math
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,12 +42,21 @@ from torch.autograd.function import once_differentiable
 from ._build import build_library
 
 DTYPES = (torch.float32, torch.bfloat16)
-# blocks to aim for per SM in the partial-sum passes, the fewest positions
-# a forward block reduces, and the fewest vectors each backward thread walks
+# blocks to aim for per SM in the partial-sum passes, and the fewest vectors
+# each of their threads walks
 BLOCKS_PER_SM = 8
-MIN_ROWS = 1024
 MIN_VECTORS_PER_THREAD = 16
-THREADS = 256  # a block
+THREADS = 256  # a block of the two-pass kernels
+# the forward's cluster route: blocks per cluster the kernel takes; the
+# share of a slab to aim for in each block (three such blocks fit an SM's
+# shared memory, so one's copy overlaps another's store); the most of a
+# larger share that a block keeps in shared memory (two such blocks fit an
+# SM), reading the rest twice; and the room left for the kernel's static
+# shared memory
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+CLUSTER_SHARE_BYTES = 64 * 1024
+CLUSTER_HELD_BYTES = 96 * 1024
+STATIC_SHARED_BYTES = 512
 
 
 def group_norm_silu_reference(x, gamma, beta, num_groups: int = 8, eps: float = 1e-6):
@@ -64,9 +83,11 @@ def _library():
     lib = ctypes.CDLL(str(build()))
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.fea_group_norm_silu_fwd.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
+        p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, p,
     ]
     lib.fea_group_norm_silu_fwd.restype = i
+    lib.fea_group_norm_silu_fwd_resident_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.fea_group_norm_silu_fwd_resident_clusters.restype = i
     lib.fea_group_norm_silu_bwd.argtypes = [
         p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, p,
     ]
@@ -77,8 +98,10 @@ def _library():
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _device_limits(index: int):
+    """The device's SMs and the shared memory one block may ask for."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
 
 
 def _layout(x):
@@ -114,32 +137,98 @@ def _check_cuda_inputs(x, gamma, beta, num_groups):
         raise ValueError(f"batch {x.shape[0]} exceeds the grid's 65535")
 
 
-def _partition(x, blocks_per_chunk: int, min_rows: int):
-    """Chunks of HW for a partial-sum pass and the rows in each: enough
-    blocks for BLOCKS_PER_SM per SM, each over at least `min_rows` rows."""
-    b, _, h, w = x.shape
-    hw = h * w
-    target = BLOCKS_PER_SM * _sm_count(x.device.index or 0)
-    chunks = max(1, min(math.ceil(target / (b * blocks_per_chunk)), math.ceil(hw / min_rows)))
-    rows = math.ceil(hw / chunks)
+def _partition(batch, channels, hw, vec, sms):
+    """Chunks of HW for a partial-sum pass (a block per channel, chunk and
+    batch element) and the positions in each, a multiple of the vector:
+    enough blocks for BLOCKS_PER_SM per SM, each thread over at least
+    MIN_VECTORS_PER_THREAD vectors."""
+    target = BLOCKS_PER_SM * sms
+    min_rows = MIN_VECTORS_PER_THREAD * THREADS * vec
+    chunks = max(1, min(math.ceil(target / (batch * channels)), math.ceil(hw / min_rows)))
+    rows = math.ceil(math.ceil(hw / chunks) / vec) * vec  # chunks start on a vector
     return math.ceil(hw / rows), rows
 
 
-def _vector_width(x, dy, dx, dy_strides) -> int:
-    """Positions each backward thread loads at once: the widest of 16 bytes
-    (4 f32 or 8 bf16), 2 and 1 that divides HW, with dy's position stride 1,
-    its other strides multiples of it, and x, dy and dx aligned to it."""
-    size = x.element_size()
-    hw = x.shape[2] * x.shape[3]
-    sb, sc, sp = dy_strides
-    for vec in (8, 4, 2, 1):
-        if vec * size > 16:
-            continue
-        if vec == 1 or (
-            hw % vec == 0 and sp == 1 and sb % vec == 0 and sc % vec == 0
-            and all(t.data_ptr() % (vec * size) == 0 for t in (x, dy, dx))
-        ):
+def _widest_vector(size, hw, fits) -> int:
+    """The widest of 16 bytes (4 f32 or 8 bf16), 2 and 1 positions that
+    divides HW and that `fits` (strides and alignment) allows."""
+    for vec in (8, 4, 2):
+        if vec * size <= 16 and hw % vec == 0 and fits(vec):
             return vec
+    return 1
+
+
+def _vector_width(x, dy, dx, dy_strides) -> int:
+    """Positions each backward thread loads at once: dy's position stride
+    1, its other strides multiples of the vector, and x, dy and dx aligned
+    to it."""
+    size = x.element_size()
+    sb, sc, sp = dy_strides
+    return _widest_vector(size, x.shape[2] * x.shape[3], lambda vec: (
+        sp == 1 and sb % vec == 0 and sc % vec == 0
+        and all(t.data_ptr() % (vec * size) == 0 for t in (x, dy, dx))
+    ))
+
+
+class ForwardPlan(NamedTuple):
+    """How one forward call runs; what a route does not use is 0."""
+
+    route: str  # "cluster" or "two_pass"
+    vec: int  # positions per load and store
+    cluster: int  # cluster route: blocks per (b, group) slab
+    smem_bytes: int  # and the dynamic shared memory of each
+    chunks: int  # two-pass route: chunks of HW
+    rows: int  # and the positions in each
+
+
+def cluster_plans(channels, hw, groups, size, smem_limit, held_bytes=CLUSTER_HELD_BYTES):
+    """Every cluster-route plan, by cluster size, that the kernel takes for
+    16-byte-aligned x (channels, HW a multiple of 16 bytes) on a device
+    whose blocks may ask for `smem_limit` bytes of shared memory: the
+    (b, group) slab splits evenly, in whole 16-byte vectors, over the
+    cluster, and a block keeps its share, or `held_bytes` of a larger one,
+    beside the (a, b) table of C/G channels."""
+    cg = channels // groups
+    slab = cg * hw * size
+    table = -(-cg * 8 // 16) * 16
+    room = smem_limit - STATIC_SHARED_BYTES - table
+    plans = []
+    for k in CLUSTER_SIZES:
+        held = min(slab // k, held_bytes)
+        if slab % (k * 16) == 0 and held <= room:
+            plans.append(ForwardPlan("cluster", 16 // size, k, table + held, 0, 0))
+    return plans
+
+
+def forward_route(batch, channels, hw, groups, size, address, sms, smem_limit) -> ForwardPlan:
+    """The forward's route for x (batch, channels, HW) of `size`-byte
+    elements at `address`, on a device of `sms` SMs whose blocks may ask for
+    `smem_limit` bytes of shared memory.
+
+    The cluster route reads x once, or little more. It takes x where
+    16-byte vectors do (HW a multiple of 16 bytes of elements, x aligned to
+    16 bytes) and one of `cluster_plans` fits: the smallest cluster whose
+    blocks take at most CLUSTER_SHARE_BYTES of x or, for a larger slab, the
+    largest cluster, if its blocks keep at least half of their share in
+    shared memory. Everything else takes the two-pass route, at the widest
+    vector that HW and x's alignment allow."""
+    vec = _widest_vector(size, hw, lambda vec: address % (vec * size) == 0)
+    fit = cluster_plans(channels, hw, groups, size, smem_limit) if vec * size == 16 else []
+    slab = channels // groups * hw * size
+    small = [plan for plan in fit if slab // plan.cluster <= CLUSTER_SHARE_BYTES]
+    if small:
+        return small[0]
+    if fit and slab // fit[-1].cluster <= 2 * CLUSTER_HELD_BYTES:
+        return fit[-1]
+    chunks, rows = _partition(batch, channels, hw, vec, sms)
+    return ForwardPlan("two_pass", vec, 0, 0, chunks, rows)
+
+
+def forward_plan(x, num_groups) -> ForwardPlan:
+    """`forward_route` of a CUDA tensor x (B, C, H, W) on its device."""
+    b, c, h, w = x.shape
+    return forward_route(b, c, h * w, num_groups, x.element_size(), x.data_ptr(),
+                         *_device_limits(x.device.index or 0))
 
 
 def _dy_strides(dy, shape):
@@ -162,25 +251,49 @@ def _raise_on(err, what):
         )
 
 
-def _forward(x, gamma, beta, num_groups, eps):
-    """y, and coef (B, C, 4) f32: (a, b, mean, rstd) with z = x a + b."""
-    _layout(x)
+def resident_clusters(plan, x) -> int:
+    """The clusters of `plan`'s size and shared memory, for x's type, that
+    x's device holds at once, as the CUDA runtime counts them."""
+    count = ctypes.c_int()
+    with torch.cuda.device(x.device):
+        err = _library().fea_group_norm_silu_fwd_resident_clusters(
+            plan.cluster, plan.smem_bytes, int(x.dtype == torch.bfloat16), ctypes.byref(count))
+    _raise_on(err, "forward (cluster occupancy)")
+    return count.value
+
+
+def _launch_forward(x, gamma, beta, num_groups, eps, plan):
+    """y, and coef (B, C, 4) f32: (a, b, mean, rstd) with z = x a + b, by
+    the route and sizes of `plan`."""
     b, c, h, w = x.shape
-    chunks, rows = _partition(x, c, MIN_ROWS)
-    partial = torch.empty((b, chunks, c, 2), device=x.device, dtype=torch.float32)
     coef = torch.empty((b, c, 4), device=x.device, dtype=torch.float32)
     gamma32, beta32 = gamma.float().contiguous(), beta.float().contiguous()
     y = torch.empty_like(x)
+    partial = tickets = None
+    if plan.route == "two_pass":
+        partial = torch.empty((b, plan.chunks, c, 2), device=x.device, dtype=torch.float32)
+        # this call's last-block tickets, as the backward takes its own
+        tickets = torch.zeros(b, device=x.device, dtype=torch.int32)
     with torch.cuda.device(x.device):
         err = _library().fea_group_norm_silu_fwd(
-            x.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), coef.data_ptr(), b, c, h * w, num_groups, chunks, rows,
-            int(x.dtype == torch.bfloat16), eps,
+            x.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), y.data_ptr(), coef.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            b, c, h * w, num_groups, plan.cluster, plan.smem_bytes, plan.chunks, plan.rows,
+            plan.vec, int(x.dtype == torch.bfloat16), eps,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _raise_on(err, "forward")
-    group_norm_silu.launches_fwd += 1
+    _raise_on(err, f"forward ({plan.route})")
     return y, coef
+
+
+def _forward(x, gamma, beta, num_groups, eps):
+    """y and coef of `_launch_forward`, by the route that `forward_route`
+    picks for x; counts the call."""
+    _layout(x)
+    out = _launch_forward(x, gamma, beta, num_groups, eps, forward_plan(x, num_groups))
+    group_norm_silu.launches_fwd += 1
+    return out
 
 
 def _backward(x, gamma, coef, dy, num_groups):
@@ -198,10 +311,7 @@ def _backward(x, gamma, coef, dy, num_groups):
     dy_strides = _dy_strides(dy, x.shape)
     dx = torch.empty_like(x)
     vec = _vector_width(x, dy, dx, dy_strides)
-    # a block per channel, its threads on vectors of positions
-    chunks, rows = _partition(x, c, MIN_VECTORS_PER_THREAD * THREADS * vec)
-    rows = math.ceil(rows / vec) * vec  # chunks start on a vector
-    chunks = math.ceil(h * w / rows)
+    chunks, rows = _partition(b, c, h * w, vec, _device_limits(x.device.index or 0)[0])
     partial = torch.empty((b, chunks, c, 2), device=x.device, dtype=torch.float32)
     group_means = torch.empty((b, num_groups, 2), device=x.device, dtype=torch.float32)
     # dgamma, dbeta and their per-batch partials, f32

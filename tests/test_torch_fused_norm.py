@@ -16,7 +16,8 @@ import torch
 
 from fea_tpu_torch.ops import group_norm_silu
 from fea_tpu_torch.ops.fused_norm import (
-    _backward, _dy_strides, _forward, _layout, _vector_width, group_norm_silu_reference,
+    ForwardPlan, _backward, _dy_strides, _forward, _layout, _vector_width, forward_plan,
+    forward_route, group_norm_silu_reference,
 )
 
 torch.set_num_threads(1)
@@ -159,6 +160,84 @@ def test_backward_vector_width(dtype, shape, dy, want):
     dx = torch.empty_like(x)
     _layout(x)
     assert _vector_width(x, dyt, dx, _dy_strides(dyt, x.shape)) == want
+
+
+# an H100 as plain numbers: SMs, and the shared memory one block may ask for
+H100 = (132, 232448)
+KIB = 1024
+# the decoder's stages (HW, C) at 256 px with, per element size, the cluster
+# the forward takes there and the bytes of x each of its blocks takes and
+# keeps in shared memory
+STAGE_ROUTES = {
+    (65536, 64): {4: (16, 128 * KIB, 96 * KIB), 2: (16, 64 * KIB, 64 * KIB)},
+    (16384, 128): {4: (16, 64 * KIB, 64 * KIB), 2: (8, 64 * KIB, 64 * KIB)},
+    (4096, 256): {4: (8, 64 * KIB, 64 * KIB), 2: (4, 64 * KIB, 64 * KIB)},
+    (1024, 512): {4: (4, 64 * KIB, 64 * KIB), 2: (2, 64 * KIB, 64 * KIB)},
+}
+
+
+@pytest.mark.parametrize("size", [4, 2])
+@pytest.mark.parametrize("batch", [2, 4, 16])
+@pytest.mark.parametrize("stage", list(STAGE_ROUTES))
+def test_forward_route(stage, batch, size):
+    """At every stage shape and batch of the main path, f32 and bf16, a
+    (b, group) slab goes to one cluster on an H100: the smallest cluster
+    whose blocks take at most 64 KiB of x, and 16 blocks of 128 KiB, of
+    which each keeps 96 KiB, for the 2 MiB f32 slabs of the first stage;
+    16-byte vectors; the shared memory asked for is what a block keeps plus
+    the (a, b) table of C/G channels, under the limit."""
+    hw, c = stage
+    cluster, share, held = STAGE_ROUTES[stage][size]
+    plan = forward_route(batch, c, hw, G, size, 0, *H100)
+    assert plan == ForwardPlan("cluster", 16 // size, cluster, held + c // G * 8, 0, 0)
+    assert c // G * hw * size == cluster * share
+    assert plan.smem_bytes <= H100[1]
+
+
+def offset_view(shape, dtype, offset):
+    """Contiguous NCHW x of NHWC `shape` that starts `offset` elements into
+    its (64-byte aligned) storage."""
+    b, h, w, c = shape
+    return torch.zeros(b * c * h * w + offset, dtype=dtype)[offset:].view(b, c, h, w)
+
+
+@pytest.mark.parametrize("shape, dtype, offset, sms_smem, want", [
+    # HW 63, C/G 6: no vector divides HW
+    ((3, 7, 9, 48), torch.float32, 0, H100, ForwardPlan("two_pass", 1, 0, 0, 1, 63)),
+    ((3, 7, 9, 48), torch.bfloat16, 0, H100, ForwardPlan("two_pass", 1, 0, 0, 1, 63)),
+    # views that start 4, 8 and 16 bytes into aligned memory
+    ((2, 16, 16, 64), torch.float32, 1, H100, ForwardPlan("two_pass", 1, 0, 0, 1, 256)),
+    ((2, 16, 16, 64), torch.float32, 2, H100, ForwardPlan("two_pass", 2, 0, 0, 1, 256)),
+    ((2, 16, 16, 64), torch.bfloat16, 2, H100, ForwardPlan("two_pass", 2, 0, 0, 1, 256)),
+    ((2, 16, 16, 64), torch.bfloat16, 4, H100, ForwardPlan("two_pass", 4, 0, 0, 1, 256)),
+    ((2, 16, 16, 64), torch.float32, 4, H100, ForwardPlan("cluster", 4, 1, 64 + 8 * KIB, 0, 0)),
+    # a slab of 8 MiB: a block of the largest cluster would keep under half
+    # of its 512 KiB; two passes over 16-byte vectors, 16 vectors a thread
+    ((1, 512, 512, 64), torch.float32, 0, H100, ForwardPlan("two_pass", 4, 0, 0, 16, 16384)),
+    # a slab of 3 MiB: blocks take 192 KiB and keep 96 KiB
+    ((1, 256, 384, 64), torch.float32, 0, H100,
+     ForwardPlan("cluster", 4, 16, 64 + 96 * KIB, 0, 0)),
+    # blocks that may have 64 KiB cannot keep 96 KiB of a 128 KiB share
+    ((2, 256, 256, 64), torch.float32, 0, (84, 65536),
+     ForwardPlan("two_pass", 4, 0, 0, 4, 16384)),
+    ((2, 256, 256, 64), torch.bfloat16, 0, (84, 101376),
+     ForwardPlan("cluster", 8, 16, 64 + 64 * KIB, 0, 0)),
+    # HW 36 is a multiple of 4 but not of 8; the slab of 8 x 36 bf16 does
+    # not split into two shares of whole 16-byte vectors
+    ((2, 6, 6, 64), torch.bfloat16, 0, H100, ForwardPlan("two_pass", 4, 0, 0, 1, 36)),
+    ((2, 6, 6, 64), torch.float32, 0, H100, ForwardPlan("cluster", 4, 1, 64 + 1152, 0, 0)),
+])
+def test_forward_route_elsewhere(shape, dtype, offset, sms_smem, want):
+    """Ragged HW, unaligned views, slabs too large for a cluster and a
+    device with too little shared memory take the two-pass route, at the
+    widest vector HW and x's address allow; no plan asks for more shared
+    memory than the device's limit."""
+    x = offset_view(shape, dtype, offset)
+    _layout(x)
+    b, c, h, w = x.shape
+    plan = forward_route(b, c, h * w, G, x.element_size(), x.data_ptr(), *sms_smem)
+    assert plan == want
+    assert plan.smem_bytes <= sms_smem[1]
 
 
 def test_other_layouts_raise():
@@ -340,6 +419,78 @@ def test_cuda_backward_takes_a_channel_slice_of_dy(cuda, shape, offset, dtype):
     got = vjp(group_norm_silu, x, gamma, beta, wide)
     want = vjp(group_norm_silu_reference, x, gamma, beta, wide)
     assert_matches_plain(got, want, dtype)
+
+
+def plain_mean_rstd(x):
+    xg = x.float().reshape(x.shape[0], G, -1)
+    mean = xg.mean(-1)
+    var = (xg.square().mean(-1) - mean.square()).clamp_min(0.0)
+    return mean, torch.rsqrt(var + 1e-6)
+
+
+# NHWC shape, elements x starts into aligned memory, and the route and
+# vector that this forces on the forward: a stage shape (one cluster per
+# slab), a slab of 3 MiB (f32: its blocks keep half of their share), a
+# single block per slab, slabs of 8 MiB, a ragged HW, and views 4 and 8
+# bytes off
+ROUTE_CASES = [
+    ((4, 64, 64, 256), 0, "cluster", None),
+    ((1, 256, 384, 64), 0, "cluster", None),
+    ((2, 16, 16, 64), 0, "cluster", None),
+    ((1, 512, 512, 64), 0, "two_pass", None),
+    ((3, 7, 9, 48), 0, "two_pass", 1),
+    ((2, 16, 16, 64), 1, "two_pass", 1),
+    ((2, 16, 16, 64), 2, "two_pass", 2),
+]
+
+
+def route_case(cuda, shape, offset, dtype):
+    x, gamma, beta, _ = cuda_case(cuda, shape, dtype, seed=3)
+    if offset:
+        x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(x.shape)
+    return x, gamma, beta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, offset, route, vec", ROUTE_CASES)
+def test_cuda_forward_routes_match_plain(cuda, shape, offset, route, vec, dtype):
+    """Each route of the forward at a shape that forces it: y against the
+    plain version (f32 atol 5e-5 / rtol 1e-4, bf16 one rounding), and the
+    coefficients it saves for the backward against the plain version's mean
+    and rstd (rtol 1e-5: f32 sums in another order) and gamma, beta."""
+    x, gamma, beta = route_case(cuda, shape, offset, dtype)
+    plan = forward_plan(x, G)
+    assert plan.route == route and (vec is None or plan.vec == vec)
+    y, coef = _forward(x, gamma, beta, G, 1e-6)
+    torch.cuda.synchronize()
+    want = group_norm_silu_reference(x, gamma, beta, G)
+    tol = FWD_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(y.float(), want.float(), **tol)
+    cg = x.shape[1] // G
+    mean, rstd = plain_mean_rstd(x)
+    for ch in range(cg):  # every channel of a group carries the group's
+        torch.testing.assert_close(coef[:, ch::cg, 2], mean, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(coef[:, ch::cg, 3], rstd, rtol=1e-5, atol=0)
+    a = rstd.repeat_interleave(cg, 1) * gamma
+    torch.testing.assert_close(coef[..., 0], a, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(coef[..., 1], beta - mean.repeat_interleave(cg, 1) * a,
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, offset, route, vec", ROUTE_CASES)
+def test_cuda_forward_is_deterministic(cuda, shape, offset, route, vec, dtype):
+    """Two runs on the same input give the same bits, y and coef, on either
+    route: the sums are taken in a fixed order, whichever block ends last."""
+    x, gamma, beta = route_case(cuda, shape, offset, dtype)
+    assert forward_plan(x, G).route == route
+    first = _forward(x, gamma, beta, G, 1e-6)
+    for _ in range(3):
+        again = _forward(x, gamma, beta, G, 1e-6)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 @pytest.mark.gpu
