@@ -39,6 +39,26 @@ Phase 5: the regression Trainer at full width (input_dim 64, 4 stages,
 Phase 6: the DiffusionTrainer at full width (FDNUNet input_dim 64, 4 stages,
          256 px, batch 4): train() takes a warm-up step and 2 more (9 + 9
          launches per step).
+Phase 7: training from the condition store held on the card. A small PNG
+         dataset (8 plates x 4 conditions x 6 steps, 256 px, from a seed) is
+         written with PIL and built into a store, whose samples must equal
+         the PNG dataset's; the store's arrays are tiled to the production
+         count (4,000 plates, 16,000 conditions; fewer where the disk is
+         small or slow, and the line says so) and the full-width regression
+         Trainer runs from it at batch 16 with `dataset_store` and
+         `device_resident_store`, f32 then bf16, a warm-up and 3 timed steps
+         each. The tables must be on the card and every micro-batch
+         assembled from them (18 + 18 GroupNorm+SiLU launches per step);
+         a batch assembled on the card must equal the store's samples for
+         the same indices bit for bit.
+Phase 8: one plate's FEM problem on the card: the gusset pentagon meshed by
+         the CDT library (built with g++) at mesh_size 1e-2, two material
+         regions, the gusset application's supports and loads. The f32
+         solve must converge, agree with the host's f64 direct solve within
+         1e-3 of the largest displacement, with the CPU's f32 solve within
+         1e-4, and with itself bit for bit when run again in longer blocks; solve_refined and
+         the f64 solve on the card within 1e-8; structurally_singular False
+         here and True with one pinned node.
 
 Kernel times are device times: CUDA events around calls that the host
 queued behind a device-side wait, each function timed in turns.
@@ -46,6 +66,9 @@ queued behind a device-side wait, each function timed in turns.
 (for example the parent commit, `git archive` unpacked into a git-ignored
 directory) in the same turns, as `earlier`; they build into that
 checkout's fea_tpu_torch/_build.
+
+The stores (about 7.6 GB at the production count) and the checkpoints
+are written under results/chip_smoke/ and deleted at the end.
 
 Prints the card, a JSON line of the kernels, and as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -60,10 +83,12 @@ import importlib.util
 import itertools
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -617,7 +642,7 @@ def trainer_config(image, results, **kw):
     )
 
 
-def timed_train(trainer, steps, tag):
+def timed_train(trainer, steps, tag, phase="phase 5"):
     """trainer.train() over `steps` more steps, with the launch counts set
     to 0 before and read after; per-step times from the loop's per-step
     callback (which reads each step's loss, so each step has ended)."""
@@ -638,7 +663,7 @@ def timed_train(trainer, steps, tag):
         raise AssertionError(f"{tag}: launches {launches}, want (0, {18 * steps}, {18 * steps})")
     ms = np.diff([t0] + stamps) * 1e3
     log(
-        f"phase 5: {tag}: losses {', '.join(f'{v:.5f}' for v in losses)}; ms per step "
+        f"{phase}: {tag}: losses {', '.join(f'{v:.5f}' for v in losses)}; ms per step "
         + ", ".join(f"{t:.3f}" for t in ms)
         + f" (the first includes the warm-up); launches {launches}"
     )
@@ -753,6 +778,328 @@ def phase_diffusion_train(device, results):
     return float(np.mean(times))
 
 
+STORE_PLATES, STORE_CONDITIONS, STORE_STEPS = 8, 4, 6
+PRODUCTION_PLATES = 4000  # x 4 conditions = 16,000: fea_tpu's production store
+STORE_WRITE_SECONDS = 100  # budget for writing the tiled store
+
+
+def write_png_dataset(root, size, seed):
+    """A dataset folder in the reference's on-disk layout, written with PIL
+    from `seed`: black-on-white region masks at the size they are read at
+    (as datagen writes them), gray displacement images, and the three text
+    files. Blocky masks, so that the PNGs stay small."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+
+    def png(path, mask=False):
+        if mask:  # dark (inked) where the region is
+            coarse = rng.random((size // 8, size // 8)) < 0.35
+            pixels = np.where(np.kron(coarse, np.ones((8, 8), bool)), 0, 255)
+        else:
+            pixels = rng.integers(0, 256, (size, size))
+        Image.fromarray(pixels.astype(np.uint8), "L").save(path)
+
+    for plate in range(1, STORE_PLATES + 1):
+        pdir = root / str(plate)
+        pdir.mkdir(parents=True)
+        png(pdir / "input.png", mask=True)
+        for condition in range(1, STORE_CONDITIONS + 1):
+            cdir = pdir / str(condition)
+            cdir.mkdir()
+            for name in ("outputs_displacement_x", "outputs_displacement_y"):
+                png(cdir / f"{name}.png")
+            for name in ("Constraint_0", "regions_Edge_0", "regions_Edge_2", "regions_Vertex_1",
+                         "regions_Material_0", "regions_Material_1"):
+                png(cdir / f"{name}.png", mask=True)
+            fx, fy, gx, vy = rng.normal(0, 100, 4)
+            (cdir / "magnitudes.txt").write_text(
+                f"Edge_0: ({fx}, {fy})\nVertex_1: (0.0, {vy})\nEdge_2: ({gx}, 0.0)\n")
+            (cdir / "materials.txt").write_text(
+                f"Material_0: ({rng.uniform(2e4, 4e5)}, 0.3)\n"
+                f"Material_1: ({rng.uniform(2e4, 4e5)}, 0.25)\n")
+            (cdir / "ranges.txt").write_text("".join(
+                f"displacement_{axis}_{step}: ({-rng.random()}, {rng.random()})\n"
+                for step in range(1, STORE_STEPS) for axis in "xy"))
+
+
+def tile_store(src_dir, dst_dir, plates):
+    """A store of `plates` plates whose arrays repeat the small store's
+    (plate p is plate p mod 8 of it): production size without production
+    datagen. Returns the bytes written."""
+    from fea_tpu_torch.data.store import _store_paths
+
+    src, dst = _store_paths(Path(src_dir)), _store_paths(Path(dst_dir))
+    Path(dst_dir).mkdir(parents=True)
+    reps = plates // STORE_PLATES
+    meta = json.loads(src["meta"].read_text())
+    meta["num_plates"] = reps * STORE_PLATES
+    dst["meta"].write_text(json.dumps(meta))
+    written = 0
+    for name in ("geometry", "constraints", "displacement", "force_winner", "mat_winner", "done"):
+        small = np.load(src[name], mmap_mode="r")
+        out = np.lib.format.open_memmap(
+            dst[name], mode="w+", dtype=small.dtype, shape=(reps * len(small),) + small.shape[1:])
+        for r in range(reps):
+            out[r * len(small):(r + 1) * len(small)] = small
+        out.flush()
+        written += out.nbytes
+        del out
+    scalars = np.load(src["scalars"])
+    np.savez(dst["scalars"], **{k: np.tile(scalars[k], (reps, 1, 1)) for k in scalars.files})
+    return written
+
+
+def disk_write_rate(folder):
+    """Bytes per second of writing 256 MiB under `folder`, synced."""
+    block = np.random.default_rng(SEED).integers(0, 256, 1 << 28, dtype=np.uint8)
+    path = folder / "write_probe.bin"
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(block.tobytes())
+        f.flush()
+        os.fsync(f.fileno())  # to the disk, not to the page cache
+    seconds = time.perf_counter() - t0
+    path.unlink()
+    return block.nbytes / seconds
+
+
+def samples_differ(a, b, bitwise):
+    """The first leaf in which two sample dicts differ, or None."""
+    if a.keys() != b.keys():
+        return "keys"
+    for key in a:
+        x, y = np.asarray(a[key]), np.asarray(b[key])
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return key
+        if (x.tobytes() != y.tobytes()) if bitwise else not np.array_equal(x, y):
+            return key
+    return None
+
+
+def phase_store_train(device, results, synthetic_ms):
+    """Phase 7. `synthetic_ms`: phase 5's (f32, bf16) ms per step, printed
+    beside this phase's. Returns the launch counts of the f32 run."""
+    from fea_tpu_torch.data import FEADataset, StoredFEADataset, build_condition_store, collate
+    from fea_tpu_torch.data import device_store
+    from fea_tpu_torch.train import Trainer
+    from fea_tpu_torch.train import trainer as trainer_module
+
+    root = results / "store"
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    write_png_dataset(root / "png", IMAGE, SEED)
+    t1 = time.perf_counter()
+    build_condition_store(str(root / "png"), str(root / "small"), num_plates=STORE_PLATES,
+                          image_size=IMAGE, conditions_per_plate=STORE_CONDITIONS,
+                          num_steps=STORE_STEPS)
+    t2 = time.perf_counter()
+    png = FEADataset(str(root / "png"), image_size=IMAGE, conditions_per_plate=STORE_CONDITIONS,
+                     num_steps=STORE_STEPS)
+    small = StoredFEADataset(str(root / "small"))
+    if len(small) != len(png) or len(png) != STORE_PLATES * STORE_CONDITIONS * (STORE_STEPS - 1):
+        raise AssertionError(f"{len(small)} stored samples, {len(png)} PNG samples")
+    for i in range(0, len(png), 7):  # every plate, condition and step comes up
+        # values, not bytes: at step 1 the store holds -0.0 for a negative
+        # force where the PNG path's overlay keeps +0.0, as in fea_tpu
+        leaf = samples_differ(png[i], small[i], bitwise=False)
+        if leaf is not None:
+            raise AssertionError(f"store sample {i} differs from the PNG sample in {leaf}")
+    log(f"phase 7: {len(png)} PNG samples written in {t1 - t0:.1f} s, store built in "
+        f"{t2 - t1:.1f} s; samples equal the PNG dataset's")
+
+    # the production count, cut where the disk is too small or too slow
+    per_plate = 7 * STORE_CONDITIONS * IMAGE * IMAGE + IMAGE * IMAGE
+    rate = disk_write_rate(root)
+    free = shutil.disk_usage(root).free
+    plates = min(PRODUCTION_PLATES, int(STORE_WRITE_SECONDS * rate / per_plate),
+                 int(0.8 * free / per_plate))
+    plates -= plates % STORE_PLATES
+    if plates < STORE_PLATES:
+        raise AssertionError(f"no room for a store: {free} bytes free, {rate:.3g} bytes/s")
+    t0 = time.perf_counter()
+    written = tile_store(root / "small", root / "big", plates)
+    log(f"phase 7: store of {plates} plates ({plates * STORE_CONDITIONS} conditions; production "
+        f"{PRODUCTION_PLATES}) tiled in {time.perf_counter() - t0:.1f} s, {written / 1e9:.2f} GB "
+        f"on disk (probe {rate / 1e9:.2f} GB/s, {free / 1e9:.0f} GB free)")
+
+    samples = SyntheticFEADataset(8, IMAGE, SEED + 1)
+    out = {}
+    for tag, compute in (("f32", None), ("bf16", "bfloat16")):
+        upload = {"assembled": 0}
+        build, assemble = device_store.build_device_tables, device_store.assemble_batch
+
+        def timed_build(ds, dev):
+            t0 = time.perf_counter()
+            tables = build(ds, dev)
+            torch.cuda.synchronize()
+            upload["seconds"] = time.perf_counter() - t0
+            return tables
+
+        def counted_assemble(tables, idx):
+            upload["assembled"] += 1
+            return assemble(tables, idx)
+
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(trainer_module, "build_device_tables", timed_build), \
+                mock.patch.object(trainer_module, "assemble_batch", counted_assemble):
+            trainer = Trainer(
+                trainer_config(IMAGE, results / "store_train", dataset_store=str(root / "big"),
+                               device_resident_store=True, compute_dtype=compute,
+                               conditions_per_plate=STORE_CONDITIONS,
+                               num_steps_per_condition=STORE_STEPS),
+                sample_dataset=samples, device=device)
+            tables = trainer.device_tables
+            if tables is None or not all(t.is_cuda for t in tables.values()):
+                raise AssertionError("the store's tables are not on the card")
+            nbytes = sum(t.numel() * t.element_size() for t in tables.values())
+            if nbytes != device_store.estimate_table_bytes(trainer.dataset):
+                raise AssertionError(f"{nbytes} table bytes, estimate "
+                                     f"{device_store.estimate_table_bytes(trainer.dataset)}")
+            batch = trainer._fetch_batch(0)
+            if "ci" not in batch or "geometry" in batch or not batch["ci"].is_cuda:
+                raise AssertionError(f"the loop does not send index vectors: {sorted(batch)}")
+            ms, launches = timed_train(trainer, 1 + TRAIN_STEPS, f"from the store, {tag}", "phase 7")
+        if upload["assembled"] != 1 + TRAIN_STEPS:
+            raise AssertionError(f"{upload['assembled']} batches assembled from the tables in "
+                                 f"{1 + TRAIN_STEPS} steps")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+
+        # the same indices through the card's tables and through the store
+        ds = trainer.dataset
+        idx = trainer.sampler.indices_at(0, TRAIN_BATCH)
+        index = {k: torch.from_numpy(v).to(device)
+                 for k, v in device_store.index_arrays(ds, idx).items()}
+        got = {k: v.cpu().numpy() for k, v in device_store.assemble_batch(tables, index).items()}
+        leaf = samples_differ(got, collate([ds[int(i)] for i in idx]), bitwise=True)
+        if leaf is not None:
+            raise AssertionError(f"the batch assembled on the card differs in {leaf}")
+        assemble_ms = in_turns(
+            {"assemble": lambda: device_store.assemble_batch(tables, index)}, 20)["assemble"]
+        log(f"phase 7: {tag}: tables {nbytes} bytes ({nbytes / 1e9:.3f} GB) on the card, uploaded "
+            f"in {upload['seconds']:.2f} s; {len(ds)} samples; assemble_batch at batch "
+            f"{TRAIN_BATCH} {assemble_ms:.4f} ms of device time, bit-equal to the store's "
+            f"samples; {ms:.3f} ms per step (phase 5, synthetic host feed: "
+            f"{synthetic_ms[tag]:.3f}); peak device memory {peak:.2f} GB")
+        out[tag] = launches
+        del trainer, tables, batch
+        torch.cuda.empty_cache()
+    return out["f32"]
+
+
+# the gusset application's plate (fea_tpu/apps/specs.py), its supports
+# (bottom and left edges) and loads (right and slanted edges)
+GUSSET = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 0.5], [0.5, 1.0], [0.0, 1.0]])
+FEM_MESH_SIZE = 1e-2  # the production mesh size
+FEM_F32_REL = 1e-3  # card f32 vs the host's f64 direct solve
+FEM_CPU_REL = 1e-4  # card f32 vs CPU f32
+FEM_F64_REL = 1e-8  # solve_refined, and f64 on the card, vs the direct solve
+
+
+def gusset_problems(mesh):
+    """The gusset under the application's supports and loads, and the same
+    plate pinned at one node (a mechanism)."""
+    from fea_tpu_torch.fem import StaticProblem
+
+    c, edges = mesh.coords, mesh.all_edges()
+    # two materials by node sets that overlap by two elements, so that every
+    # cell lies in one of them (a cell outside every region has no stiffness)
+    regions = [((210000.0, 0.3), np.where(c[:, 0] <= 0.52)[0]),
+               ((68900.0, 0.33), np.where(c[:, 0] >= 0.5)[0])]
+    problem = StaticProblem.from_condition(
+        mesh, regions, point_constraints=[], edge_constraints=[edges[0], edges[4]],
+        point_forces=[], edge_forces=[(edges[1], (1000.0, 0.0)), (edges[2], (1000.0, 1000.0))],
+        num_steps=6)
+    one_pin = StaticProblem.from_condition(
+        mesh, regions, point_constraints=[0], edge_constraints=[], point_forces=[],
+        edge_forces=[(edges[1], (1000.0, 0.0))], num_steps=6)
+    return problem, one_pin
+
+
+def phase_fem(device):
+    from fea_tpu_torch.fem import direct_solve, solve_refined
+    from fea_tpu_torch.fem.solver import CHECK_EVERY
+    from fea_tpu_torch.mesh import triangulate
+
+    t0 = time.perf_counter()
+    mesh = triangulate(GUSSET, mesh_size=FEM_MESH_SIZE)  # builds the CDT library with g++
+    t1 = time.perf_counter()
+    triangulate(GUSSET, mesh_size=FEM_MESH_SIZE)
+    mesher_s = time.perf_counter() - t1
+    problem, one_pin = gusset_problems(mesh)
+    if problem.structurally_singular() or not one_pin.structurally_singular():
+        raise AssertionError("structurally_singular: want False for the gusset, True for one pin")
+    log(f"phase 8: gusset at mesh_size {FEM_MESH_SIZE}: {mesh.num_nodes} nodes, "
+        f"{mesh.num_triangles} triangles, {int(problem.fixed_nodes.sum())} fixed; mesher "
+        f"{mesher_s:.3f} s (first call, with the g++ build, {t1 - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    want = direct_solve(problem).displacements
+    direct_s = time.perf_counter() - t0
+    scale = float(np.abs(want).max())
+
+    def rel(result):
+        u = result.displacements
+        u = u.cpu().numpy() if isinstance(u, torch.Tensor) else u
+        return float(np.abs(u - want).max()) / scale
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = problem.solve(**kw)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    timed(dtype=torch.float32)  # warm-up: cuSOLVER's and cuBLAS's handles
+    f32, f32_ms = timed(dtype=torch.float32)
+    again, again_ms = timed(dtype=torch.float32, check_every=32)
+    if not f32.displacements.is_cuda or not f32.success:
+        raise AssertionError(f"f32 solve on the card: converged {bool(f32.converged)}, failed "
+                             f"{bool(f32.failed)}, residual {float(f32.residual_norm):.3e}")
+    if not torch.equal(f32.displacements, again.displacements) or \
+            int(f32.iterations) != int(again.iterations):
+        raise AssertionError("the f32 solve is not the same when run again in blocks of 32")
+    iters = int(f32.iterations)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        problem.solve(dtype=torch.float32)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    # loop bodies queued: CHECK_EVERY for each host read that found the loop
+    # running (each of the 6 restarts ends on one that did not); those past
+    # an exit change nothing
+    bodies = CHECK_EVERY * (f32.host_reads - 6)
+    log(f"phase 8: f32 on the card: {iters} iterations, residual {float(f32.residual_norm):.3e}, "
+        f"{f32_ms:.2f} ms per solve (set-up included), {f32_ms / iters:.4f} ms per CG "
+        f"iteration, {f32.host_reads} host reads per solve (blocks of {CHECK_EVERY}); in blocks of "
+        f"32: {again_ms:.2f} ms, "
+        f"{again.host_reads} host reads, the same result bit for bit; {kernels} device kernels "
+        f"and copies per solve, {bodies} loop bodies queued ({bodies - iters} past an exit), "
+        f"{kernels / bodies:.1f} kernels per body; within {rel(f32):.3e} of the direct solve "
+        f"(host f64 SuperLU, {direct_s:.2f} s)")
+    if rel(f32) > FEM_F32_REL:
+        raise AssertionError(f"f32 solve {rel(f32):.3e} from the direct solve")
+
+    t0 = time.perf_counter()
+    cpu = problem.solve(dtype=torch.float32, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    cpu_rel = float((f32.displacements.cpu() - cpu.displacements).abs().max()) / scale
+    log(f"phase 8: f32 on the CPU: {int(cpu.iterations)} iterations (card {iters}), "
+        f"{cpu_ms:.0f} ms; card vs CPU {cpu_rel:.3e}")
+    if cpu_rel > FEM_CPU_REL:
+        raise AssertionError(f"card and CPU f32 solves differ by {cpu_rel:.3e}")
+
+    f64, f64_ms = timed()
+    t0 = time.perf_counter()
+    refined = solve_refined(problem)
+    refined_ms = (time.perf_counter() - t0) * 1e3
+    log(f"phase 8: f64 on the card: {int(f64.iterations)} iterations, {f64_ms:.2f} ms, within "
+        f"{rel(f64):.3e}; solve_refined: {int(refined.iterations)} inner iterations, "
+        f"{refined_ms:.2f} ms, {refined.host_reads} host reads, within {rel(refined):.3e}")
+    if not (f64.success and refined.success) or max(rel(f64), rel(refined)) > FEM_F64_REL:
+        raise AssertionError("the f64 or the refined solve is off the direct solve")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", metavar="TREE",
@@ -810,6 +1157,13 @@ def main():
         diffusion_ms = phase_diffusion_train(device, results)
         log(f"phase 6: ms per diffusion train step at batch {DIFFUSION_BATCH}: {diffusion_ms:.3f}")
         log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _, store_fwd, store_bwd = phase_store_train(
+            device, results, {"f32": f32_ms, "bf16": bf16_ms})
+        log(f"phase 7 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_fem(device)
+        log(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)
 
@@ -837,12 +1191,14 @@ def main():
         },
         {
             "name": "group_norm_silu_fwd", "route": "cuda", "source": gn_source,
-            "replaces": "fea_tpu/ops/fused_norm.py:115", "launches": gn_fwd, **gn["fwd"],
+            "replaces": "fea_tpu/ops/fused_norm.py:115", "launches": gn_fwd,
+            "launches_from_store": store_fwd, **gn["fwd"],
             "redesigned": REDESIGNED["group_norm_silu_fwd"],
         },
         {
             "name": "group_norm_silu_bwd", "route": "cuda", "source": gn_source,
-            "replaces": "fea_tpu/ops/fused_norm.py:132", "launches": gn_bwd, **gn["bwd"],
+            "replaces": "fea_tpu/ops/fused_norm.py:132", "launches": gn_bwd,
+            "launches_from_store": store_bwd, **gn["bwd"],
             "redesigned": REDESIGNED["group_norm_silu_bwd"],
         },
     ]}))

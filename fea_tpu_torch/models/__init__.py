@@ -7,6 +7,7 @@ from .fdnunet import (
     create_models,
     predict,
 )
+from .unet import UNet
 
 __all__ = [
     "FDNUNet",
@@ -14,6 +15,7 @@ __all__ = [
     "FDNUNetDecoder",
     "FDNUNetEncoder",
     "GaussianDiffusion",
+    "UNet",
     "create_models",
     "make_diffusion_model",
     "predict",

@@ -44,7 +44,7 @@ def _convert_leaf(path: str, value: np.ndarray):
 
 def from_flax(params: Mapping) -> dict:
     """State dict (float32 CPU tensors) for a flax param tree of numpy
-    arrays: the encoder / decoder / aux trio, or FDNUNet. Every leaf becomes
+    arrays: the encoder / decoder / aux trio, FDNUNet or UNet. Every leaf becomes
     exactly one entry; a leaf the conversion does not know raises."""
     state = {}
     for path, value in _flatten(params):

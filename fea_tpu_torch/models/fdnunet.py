@@ -184,7 +184,7 @@ class FDNUNetAuxDecoder(nn.Module):
         return self.auxiliary_range_predictor(nchw(x))
 
 
-def create_models(
+def build_models(
     input_dim: int,
     image_height: int,
     image_width: int,
@@ -196,12 +196,9 @@ def create_models(
     num_channels: int = 3,
     num_auxiliary_condition_channels: int = 3,
     resnet_num_groups_for_normalization: int = 8,
-    *,
-    device,
-    generator: torch.Generator,
 ) -> Tuple[FDNUNetEncoder, FDNUNetDecoder, FDNUNetAuxDecoder]:
-    """The three modules with matched dims, on `device`, with weights drawn
-    from `generator` (flax's default initializers)."""
+    """The three modules with matched dims on the meta device: names and
+    shapes, no storage (`create_models` gives them weights)."""
     dims = _stage_dims(input_dim, initial_dim, num_stages)
     with torch.device("meta"):
         encoder = FDNUNetEncoder(
@@ -229,7 +226,13 @@ def create_models(
             num_layers=range_prediction_num_layers,
             num_stages=num_stages,
         )
-    return tuple(materialize(m, device, generator) for m in (encoder, decoder, auxiliary))
+    return encoder, decoder, auxiliary
+
+
+def create_models(*args, device, generator: torch.Generator, **kwargs):
+    """`build_models`' three modules on `device`, with weights drawn from
+    `generator` (flax's default initializers)."""
+    return tuple(materialize(m, device, generator) for m in build_models(*args, **kwargs))
 
 
 @torch.no_grad()

@@ -35,6 +35,14 @@ from PIL import Image
 from torch.utils.checkpoint import checkpoint
 
 from ..data.dataset import EpochSampler, FEADataset, collate
+from ..data.device_store import (
+    assemble_batch,
+    build_device_tables,
+    default_table_byte_cap,
+    estimate_table_bytes,
+    index_arrays,
+)
+from ..data.store import StoredFEADataset
 from ..models.fdnunet import create_models
 from ..utils.device import cuda_device
 from .ema import ema_update
@@ -81,8 +89,10 @@ class TrainerConfig:
     # keep decoded samples in RAM; None = when the decoded set takes under
     # a quarter of the free RAM
     cache_datasets: Optional[bool] = None
-    # later slices of the port (ROADMAP.md): they raise when set
+    # a condition-store directory (data/store.py) to train from instead of
+    # the PNG folder
     dataset_store: Optional[str] = None
+    # multi-GPU is a later slice of the port (ROADMAP.md): raises when > 1
     n_devices: Optional[int] = None
     skip_dataset_size_check: bool = False
     inference_only: bool = False  # sampling: no effective-batch floor
@@ -92,7 +102,12 @@ class TrainerConfig:
     # ship the +-1 mask channels as int8 and, under bf16 compute, forces
     # and materials as bf16: bit-exact, fewer bytes to the device
     pack_transfers: bool = True
+    # with dataset_store: upload the store's tables to the device once and
+    # assemble every micro-batch there from index vectors, when the tables
+    # fit under the cap (None: the device's memory less the train step's
+    # reserve, data/device_store.py); else the host feed carries on
     device_resident_store: bool = False
+    device_store_byte_cap: Optional[int] = None
     # recompute each micro-batch's forward in the backward
     remat_loss: bool = False
 
@@ -130,11 +145,6 @@ def _check_config(config: TrainerConfig):
         raise ValueError(f"unknown loss_type {config.loss_type}")
     if config.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {list(COMPUTE_DTYPES)}")
-    if config.dataset_store is not None or config.device_resident_store:
-        raise NotImplementedError(
-            "dataset_store / device_resident_store: the condition store and the "
-            "device-resident store are not ported yet (ROADMAP.md, slice 5)"
-        )
     if config.n_devices not in (None, 1):
         raise NotImplementedError(
             f"n_devices={config.n_devices}: the port trains on one device; "
@@ -152,6 +162,33 @@ class Trainer:
         self.device = torch.device(device) if device is not None else cuda_device()
         self.compute_dtype = COMPUTE_DTYPES[config.compute_dtype]
 
+        self.device_tables = None
+        if dataset is None and config.dataset_store is not None:
+            dataset = StoredFEADataset(
+                config.dataset_store, start_plate_index=config.train_start_plate_index
+            )
+            assert dataset.image_size == config.dataset_image_size
+            assert dataset.num_steps == config.num_steps_per_condition - 1
+            assert dataset.conditions_per_plate_geometry == config.conditions_per_plate
+            if config.device_resident_store:
+                est = estimate_table_bytes(dataset)
+                cap = config.device_store_byte_cap
+                if cap is None:
+                    cap = default_table_byte_cap(self.device)
+                if est <= cap:
+                    self.device_tables = build_device_tables(dataset, self.device)
+                    print(
+                        f"device-resident store: {est / 1e9:.2f} GB of "
+                        "tables uploaded once; per-step host traffic is "
+                        "index vectors only"
+                    )
+                else:
+                    print(
+                        f"device-resident store disabled: tables "
+                        f"{est / 1e9:.2f} GB exceed cap {cap / 1e9:.2f} GB"
+                        " — falling back to the host feed"
+                    )
+        from_folder = dataset is None
         self.dataset = dataset if dataset is not None else FEADataset(
             config.dataset_folder,
             image_size=config.dataset_image_size,
@@ -159,7 +196,7 @@ class Trainer:
             num_steps=config.num_steps_per_condition,
             start_plate_index=config.train_start_plate_index,
         )
-        if dataset is None:
+        if from_folder:
             cache = config.cache_datasets
             if cache is None:
                 S = config.dataset_image_size
@@ -315,7 +352,9 @@ class Trainer:
     # ---------------------------------------------------------- train step
     def _train_step(self, batch) -> torch.Tensor:
         """One optimizer step on `batch` (leaves (accum, micro, ...) on the
-        device); returns the mean loss as a device scalar, without a sync.
+        device: packed tensors, or with the device-resident store the index
+        vectors that each micro-batch is assembled from); returns the mean
+        loss as a device scalar, without a sync.
 
         Non-finite guard: when the loss or the global grad norm is not
         finite, the params, the Adam moments and step count and the EMA all
@@ -331,7 +370,11 @@ class Trainer:
 
         grads, loss_sum = None, None
         for i in range(accum):
-            micro = self._unpack_transfer({k: v[i] for k, v in batch.items()})
+            micro = {k: v[i] for k, v in batch.items()}
+            if "ci" in micro:
+                micro = assemble_batch(self.device_tables, micro)
+            else:
+                micro = self._unpack_transfer(micro)
             loss = loss_fn(micro)
             g = torch.autograd.grad(loss, params, allow_unused=True)
             g = [torch.zeros_like(p) if gi is None else gi for gi, p in zip(g, params)]
@@ -385,7 +428,11 @@ class Trainer:
         cfg = self.config
         accum, micro = cfg.num_gradient_accumulation_steps, cfg.train_batch_size
         idx = self.sampler.indices_at(global_offset, micro * accum)
-        batch = self._pack_transfer(collate([self.dataset[int(i)] for i in idx]))
+        if self.device_tables is not None:
+            # device-resident store: ship index vectors, assemble on the device
+            batch = {k: torch.from_numpy(v) for k, v in index_arrays(self.dataset, idx).items()}
+        else:
+            batch = self._pack_transfer(collate([self.dataset[int(i)] for i in idx]))
         return {
             k: self._to_device(v.reshape((accum, micro) + tuple(v.shape[1:])))
             for k, v in batch.items()

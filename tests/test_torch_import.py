@@ -20,9 +20,25 @@ MODULES = [
     "fea_tpu_torch.models.diffusion",
     "fea_tpu_torch.models.convert",
     "fea_tpu_torch.models.initializers",
+    "fea_tpu_torch.models.unet",
     "fea_tpu_torch.utils.device",
     "fea_tpu_torch.data",
     "fea_tpu_torch.data.dataset",
+    "fea_tpu_torch.data.store",
+    "fea_tpu_torch.data.device_store",
+    "fea_tpu_torch.materials",
+    "fea_tpu_torch.geometry",
+    "fea_tpu_torch.geometry.polygon",
+    "fea_tpu_torch.mesh",
+    "fea_tpu_torch.mesh.mesher",
+    "fea_tpu_torch.mesh.mesh_io",
+    "fea_tpu_torch.fem",
+    "fea_tpu_torch.fem.elasticity",
+    "fea_tpu_torch.fem.assembly",
+    "fea_tpu_torch.fem.solver",
+    "fea_tpu_torch.fem.coarse",
+    "fea_tpu_torch.fem.problem",
+    "fea_tpu_torch.fem.direct",
     "fea_tpu_torch.train",
     "fea_tpu_torch.train.ema",
     "fea_tpu_torch.train.optim",
