@@ -1,6 +1,7 @@
-"""Drive the PyTorch port's serving and training paths once on one CUDA card.
+"""Drive the PyTorch port's serving, training and datagen paths once on one
+CUDA card.
 
-    python3 chip_smoke.py [--against TREE]
+    python3 chip_smoke.py [--against TREE] [--only PHASES]
 
 Set-up: TF32 off for matmuls and convolutions; both kernel libraries (flash
 attention, fused GroupNorm+SiLU) are built at once, one nvcc each, from
@@ -59,6 +60,27 @@ Phase 8: one plate's FEM problem on the card: the gusset pentagon meshed by
          1e-4, and with itself bit for bit when run again in longer blocks; solve_refined and
          the f64 solve on the card within 1e-8; structurally_singular False
          here and True with one pinned node.
+Phase 9: one flat datagen chunk at the production shape: 4 plates of the
+         seeded GeometrySampler at mesh 1e-2 x 4 seeded conditions (16
+         lanes), padded to their common buckets, with the scheduler's
+         budget, solved through the solve worker with the band and with
+         the incidence operator. Every converged lane within 1e-3 of the
+         host's f64 direct solve, the operators within 1e-4 on the lanes
+         both end under a residual of 1e-4, the chunk bit-identical when
+         solved again; prints ms per chunk and per loop body, iterations
+         per lane, host reads, device kernels per body (operator,
+         preconditioner, the rest), bytes of band per iteration, peak
+         memory.
+Phase 10: generate_data_batched at bench.py's config (512 px, 4 conditions
+         x 6 steps, mesh 1e-2, displacement images): 4 warm-up plates, 16
+         timed; plates per hour, the solve counters, the StageTimer
+         breakdown, ms per loop body inside the scheduler, peak memory;
+         every plate directory holds the reference's file set with finite
+         ranges; two runs of 2 plates from one seed write the same bytes.
+Phase 11: the regression Trainer at full width from
+         InMemoryFEADataset.generate (2 plates x 4 conditions x 6 steps,
+         256 px, mesh 2e-2, seed 11): a warm-up and one timed f32 step,
+         18 + 18 GroupNorm+SiLU launches per step.
 
 Kernel times are device times: CUDA events around calls that the host
 queued behind a device-side wait, each function timed in turns.
@@ -67,8 +89,9 @@ queued behind a device-side wait, each function timed in turns.
 directory) in the same turns, as `earlier`; they build into that
 checkout's fea_tpu_torch/_build.
 
-The stores (about 7.6 GB at the production count) and the checkpoints
-are written under results/chip_smoke/ and deleted at the end.
+The stores (about 7.6 GB at the production count), the checkpoints and
+the datagen trees are written under results/chip_smoke/ and deleted at
+the end. `--only 9,10,11` runs only those datagen phases (no result line).
 
 Prints the card, a JSON line of the kernels, and as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -595,7 +618,7 @@ def phase_group_norm(device, earlier):
 
 class SyntheticFEADataset:
     """Seeded samples in the FEADataset contract (fea_tpu_torch/data), made
-    in memory: the card has no datagen and no data. +-1 geometry and
+    in memory (phase 11 trains from the port's own datagen). +-1 geometry and
     constraint masks, forces and materials on the plate, displacement in
     [-1, 1], and the range targets."""
 
@@ -1100,10 +1123,314 @@ def phase_fem(device):
         raise AssertionError("the f64 or the refined solve is off the direct solve")
 
 
+# phases 9-11: datagen on the card at bench.py's production config
+# (bench.py:46-54: 512 px, 4 conditions x 6 steps, mesh 1e-2, displacement)
+DATAGEN = dict(image_size=512, conditions_per_plate=4, mesh_size=1e-2,
+               num_steps_per_condition=6, save_displacement=True, save_meshes=False,
+               verbose=False)
+CHUNK_PLATES = 4  # the scheduler's batch_size: 4 plates x 4 conditions = 16 lanes
+DATAGEN_WARMUP_PLATES, DATAGEN_TIMED_PLATES, DATAGEN_REPEAT_PLATES = 4, 16, 2
+CHUNK_DIRECT_REL = 1e-3  # a converged lane vs the host's f64 direct solve
+CHUNK_OPERATORS_REL = 1e-4  # band vs incidence operator on the same lanes
+CHUNK_OPERATORS_RESIDUAL = 1e-4  # ... that both ended at a residual of at most this
+
+
+def condition_problem(mesh, condition):
+    from fea_tpu_torch.fem import StaticProblem
+
+    return StaticProblem.from_condition(
+        mesh, condition["material_regions"], condition["point_constraints"],
+        condition["edge_constraints"], condition["point_forces"], condition["edge_forces"],
+        num_steps=DATAGEN["num_steps_per_condition"])
+
+
+def chunk_payloads(device, banded):
+    """Phase 9's chunk: the first CHUNK_PLATES plates of the seeded
+    GeometrySampler at mesh 1e-2 whose RCM band fits the cap, padded to
+    their common buckets as the scheduler pads a chunk, each with 4 seeded
+    non-singular conditions; solvers with the scheduler's budget."""
+    from fea_tpu_torch.datagen import ConditionSampler, PlateSolver
+    from fea_tpu_torch.datagen.batched import (
+        BAND_HB_CAP, ITERS_PER_DISPATCH, RESTARTS_PER_DISPATCH, RunningBuckets)
+    from fea_tpu_torch.fem.banded import quantize_hb, rcm_permutation
+    from fea_tpu_torch.geometry import GeometrySampler
+    from fea_tpu_torch.mesh import triangulate_polygon
+
+    geometry = GeometrySampler(random_seed=SEED)
+    conditions = ConditionSampler(random_seed=SEED + 1)
+    plates, hbs = [], []
+    while len(plates) < CHUNK_PLATES:
+        mesh = triangulate_polygon(geometry.generate(), mesh_size=DATAGEN["mesh_size"])
+        hb = quantize_hb(rcm_permutation(mesh.triangles, mesh.num_nodes)[1])
+        if hb > BAND_HB_CAP:
+            continue
+        pool, problems = [], []
+        for condition in conditions.sample(mesh, DATAGEN["conditions_per_plate"], cluster_pool=pool):
+            for _ in range(30):
+                problem = condition_problem(mesh, condition)
+                if not problem.structurally_singular():
+                    break
+                condition = conditions.sample_one(mesh, cluster_pool=pool)
+            else:
+                raise AssertionError("phase 9: 30 singular conditions in a row")
+            problems.append(problem)
+        plates.append((mesh, problems))
+        hbs.append(hb)
+    buckets = RunningBuckets()
+    buckets.update(mesh for mesh, _ in plates)
+
+    def build(degree):
+        return [PlateSolver(
+            mesh, DATAGEN["num_steps_per_condition"], node_bucket=buckets.node,
+            tri_bucket=buckets.tri, min_incidence_degree=degree,
+            band_hb=max(hbs) if banded else -1, include_cell_fields=False,
+            max_iters=ITERS_PER_DISPATCH, restarts=RESTARTS_PER_DISPATCH, banded=banded,
+            device=device) for mesh, _ in plates]
+
+    solvers = build(0)
+    solvers = build(max(int(s.slots_dev.shape[1]) for s in solvers))
+    return [(s, problems) for s, (_, problems) in zip(solvers, plates)]
+
+
+def device_kernels(fn):
+    """Device kernels and copies that `fn` launches, by torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def solve_chunk(payloads):
+    """One chunk through the solve worker: (packed rows on the card, info)."""
+    from fea_tpu_torch.datagen.batched import dispatch_plate_group
+
+    info = {}
+    rows = dispatch_plate_group(payloads, info=info).result()
+    return rows, info
+
+
+def phase_chunk(device):
+    """Phase 9. Returns ms per loop body (band operator)."""
+    from fea_tpu_torch.datagen.batched import chunk_inputs, chunk_tables, unpack_plate_group
+    from fea_tpu_torch.fem import direct_solve
+    from fea_tpu_torch.fem.flatgroup import chunk_system, flat_group_body
+    from fea_tpu_torch.fem.solver import CHECK_EVERY
+
+    t0 = time.perf_counter()
+    band = chunk_payloads(device, banded=True)
+    plain = chunk_payloads(device, banded=False)
+    s0 = band[0][0]
+    P, C = len(band), len(band[0][1])
+    log(f"phase 9: {P} plates x {C} conditions ({P * C} lanes) at mesh {DATAGEN['mesh_size']}: "
+        f"nodes {[s.n for s, _ in band]}, triangles {[s.m for s, _ in band]}, buckets "
+        f"({s0.node_bucket}, {s0.tri_bucket}), band hb {s0.band_hb}, incidence width "
+        f"{int(plain[0][0].slots_dev.shape[1])}, n_coarse {s0.n_coarse}, member table width "
+        f"{max(s.members.shape[1] for s, _ in band)}; set-up on the host {time.perf_counter() - t0:.1f} s")
+    solve_chunk(band)  # warm-up: cuBLAS, cuSOLVER and the allocator
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for name, payloads in (("band", band), ("incidence", plain), ("band again", band)):
+        t0 = time.perf_counter()
+        rows, info = solve_chunk(payloads)
+        wall = time.perf_counter() - t0
+        bodies = CHECK_EVERY * (info["host_reads"] - s0.restarts)
+        out[name] = (rows, info, wall, bodies)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not torch.equal(out["band"][0], out["band again"][0]):
+        raise AssertionError("the chunk is not the same bit for bit when solved again")
+
+    results = {name: unpack_plate_group(out[name][0].cpu().numpy(), payloads)
+               for name, payloads in (("band", band), ("incidence", plain))}
+    worst_direct, worst_ops, converged, compared = 0.0, 0.0, 0, 0
+    for p, (solver, problems) in enumerate(band):
+        for c, problem in enumerate(problems):
+            ours, other = results["band"][p][c], results["incidence"][p][c]
+            want = direct_solve(problem).displacements[-1]
+            scale = max(float(np.abs(want).max()), 1e-30)  # a lane loaded at fixed nodes only: u = 0
+            if ours.success:
+                converged += 1
+                worst_direct = max(worst_direct, float(np.abs(ours.displacements[-1] - want).max()) / scale)
+            # the operators are held to each other on lanes that both ended
+            # within StaticProblem.solve's own acceptance (1e-4); datagen
+            # accepts residuals up to 2e-3, where two solves differ by more
+            if max(float(ours.residual_norm), float(other.residual_norm)) <= CHUNK_OPERATORS_RESIDUAL:
+                compared += 1
+                worst_ops = max(worst_ops, float(np.abs(
+                    ours.displacements[-1] - other.displacements[-1]).max()) / scale)
+    iters = {name: [int(r.iterations) for plate in res for r in plate] for name, res in results.items()}
+    w_band = 2 * s0.band_hb + 128
+    band_bytes = C * 2 * P * s0.node_bucket * w_band * 4
+    ms_body = {}
+    for name in ("band", "incidence"):
+        rows, info, wall, bodies = out[name]
+        ms_body[name] = info["loop_s"] * 1e3 / max(bodies, 1)
+        n_conv = sum(r.success for plate in results[name] for r in plate)
+        log(f"phase 9: {name} operator: chunk {wall * 1e3:.1f} ms (set-up {info['setup_s'] * 1e3:.1f}, "
+            f"loop {info['loop_s'] * 1e3:.1f}), {info['host_reads']} host reads, {bodies} loop bodies "
+            f"queued (blocks of {CHECK_EVERY}), {ms_body[name]:.3f} ms per body; iterations per lane "
+            f"{iters[name]}; {n_conv} of {P * C} lanes converged")
+    log(f"phase 9: converged lanes within {worst_direct:.3e} of the host's f64 direct solve "
+        f"(tolerance {CHUNK_DIRECT_REL}, {converged} lanes); band vs incidence {worst_ops:.3e} "
+        f"(tolerance {CHUNK_OPERATORS_REL}, {compared} lanes that both ended at a residual of at "
+        f"most {CHUNK_OPERATORS_RESIDUAL}); the band solve again: the same bit "
+        f"for bit; band {band_bytes / 1e9:.3f} GB read per iteration; peak device memory {peak:.2f} GB")
+    if converged == 0 or compared == 0:
+        raise AssertionError(f"phase 9: {converged} converged lanes, {compared} compared")
+    if worst_direct > CHUNK_DIRECT_REL or worst_ops > CHUNK_OPERATORS_REL:
+        raise AssertionError("phase 9: a converged lane is off the direct solve or the other operator")
+
+    # kernels per loop body, split by what torch.profiler can tell apart:
+    # the operator (with the loop's two free-dof masks) and the
+    # preconditioner, one call each; the recurrence is the rest of a body
+    for name, payloads in (("band", band), ("incidence", plain)):
+        solvers, host, m_real, band_hb = chunk_inputs(payloads)
+        tables, m_real_p = chunk_tables(solvers, host, m_real, device)
+        system = chunk_system(*tables, m_real_p=m_real_p, n_coarse=s0.n_coarse, band_hb=band_hb)
+        r = system.b * system.free
+        k_op = device_kernels(lambda: system.op(r * system.free) * system.free)
+        k_pre = device_kernels(lambda: system.precondition(r))
+        k_setup = device_kernels(lambda: chunk_system(
+            *tables, m_real_p=m_real_p, n_coarse=s0.n_coarse, band_hb=band_hb))
+        info = {}
+        # on this thread, where the profiler records (the worker's launches
+        # come from another thread)
+        k_total = device_kernels(lambda: flat_group_body(
+            *tables, m_real_p=m_real_p, band_hb=band_hb, info=info, n_coarse=s0.n_coarse,
+            tol=s0.tol, max_iters=s0.max_iters, accept_tol=s0.accept_tol,
+            restarts=s0.restarts, include_cell_fields=s0.include_cell_fields))
+        bodies = CHECK_EVERY * (info["host_reads"] - s0.restarts)
+        per_body = (k_total - k_setup) / max(bodies, 1)
+        log(f"phase 9: {name}: {k_total} device kernels per chunk, {k_setup} in the set-up, "
+            f"{per_body:.1f} per loop body: operator {k_op}, preconditioner {k_pre}, recurrence "
+            f"and masks {per_body - k_op - k_pre:.1f}")
+        del system, tables
+    torch.cuda.empty_cache()
+    return ms_body["band"]
+
+
+def plate_files_ok(plate_dir, conditions, steps):
+    """The reference's file set for one plate (fea_tpu/datagen/writers.py),
+    and finite ranges: raises if not."""
+    names = set(os.listdir(plate_dir))
+    want = {"input.png", "outline.png"} | {str(c) for c in range(1, conditions + 1)}
+    if names != want:
+        raise AssertionError(f"{plate_dir}: {sorted(names)}")
+    for c in range(1, conditions + 1):
+        cdir = os.path.join(plate_dir, str(c))
+        files = set(os.listdir(cdir))
+        for name in ("magnitudes.txt", "materials.txt", "ranges.txt",
+                     "outputs_displacement_x.png", "outputs_displacement_y.png"):
+            if name not in files:
+                raise AssertionError(f"{cdir}: no {name}")
+        with open(os.path.join(cdir, "materials.txt")) as f:
+            materials = len(f.readlines())
+        with open(os.path.join(cdir, "magnitudes.txt")) as f:
+            forces = len(f.readlines())
+        regions = [n for n in files if n.startswith("regions_")]
+        if sum(n.startswith("regions_MaterialRegion") for n in regions) != materials or \
+                sum("Force" in n for n in regions) != forces or \
+                not any("Constraint" in n for n in regions):
+            raise AssertionError(f"{cdir}: region images {sorted(regions)}")
+        with open(os.path.join(cdir, "ranges.txt")) as f:
+            values = [eval(line.split(":", 1)[1]) for line in f]
+        if len(values) != 2 * (steps - 1) or not np.isfinite(values).all():
+            raise AssertionError(f"{cdir}: ranges {values}")
+
+
+def tree_bytes(root):
+    return {os.path.relpath(os.path.join(d, f), root): Path(d, f).read_bytes()
+            for d, _, files in os.walk(root) for f in files}
+
+
+def phase_datagen(device, results, chunk_ms_body):
+    """Phase 10: generate_data_batched at bench.py's config."""
+    from fea_tpu_torch.datagen import generate_data_batched
+    from fea_tpu_torch.fem.solver import CHECK_EVERY
+    from fea_tpu_torch.utils.profiling import StageTimer
+
+    common = dict(DATAGEN, device=device)
+    t0 = time.perf_counter()
+    generate_data_batched(data_dir=str(results / "warm"), num_plates=DATAGEN_WARMUP_PLATES,
+                          seed=7, **common)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    stages = StageTimer()
+    t0 = time.perf_counter()
+    stats = generate_data_batched(data_dir=str(results / "timed"), num_plates=DATAGEN_TIMED_PLATES,
+                                  seed=1234, stage_timer=stages, **common)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for plate in range(1, DATAGEN_TIMED_PLATES + 1):
+        plate_files_ok(str(results / "timed" / str(plate)), DATAGEN["conditions_per_plate"],
+                       DATAGEN["num_steps_per_condition"])
+    bodies = CHECK_EVERY * (stats["host_reads"] - stats["chunks"])
+    ms_body = stats["chunk_loop_s"] * 1e3 / max(bodies, 1)
+    iters = stats["converged_iters"]
+    log(f"phase 10: generate_data_batched, {DATAGEN_TIMED_PLATES} plates at {DATAGEN['image_size']} "
+        f"px, {DATAGEN['conditions_per_plate']} conditions x {DATAGEN['num_steps_per_condition']} "
+        f"steps, mesh {DATAGEN['mesh_size']}: {wall:.1f} s, {DATAGEN_TIMED_PLATES / wall * 3600:.1f} "
+        f"plates per hour (warm-up of {DATAGEN_WARMUP_PLATES} plates {warm_s:.1f} s)")
+    log(f"phase 10: {stats['solves']} solves dispatched in {stats['chunks']} chunks, "
+        f"{stats['cg_failures']} CG failures, {stats['direct_fallbacks']} direct fallbacks, "
+        f"{stats['continuations']} continuations, {stats['host_rejections']} host rejections, "
+        f"{stats['cg_resamples']} resampled; converged lanes' iterations median "
+        f"{float(np.median(iters)) if iters else float('nan'):.0f}, max {max(iters, default=0)}; "
+        f"final buckets {stats['final_buckets']}")
+    log(f"phase 10: solve worker {stats['device_busy_s']:.2f} s busy of {wall:.2f} s; chunks' set-up "
+        f"{stats['chunk_setup_s']:.2f} s, loops {stats['chunk_loop_s']:.2f} s over {bodies} bodies: "
+        f"{ms_body:.3f} ms per loop body inside the scheduler (phase 9, alone: "
+        f"{chunk_ms_body:.3f}); peak device memory {peak:.2f} GB")
+    log("phase 10: stages (host clock)\n" + stages.summary())
+
+    trees = []
+    for tag in ("repeat_a", "repeat_b"):
+        generate_data_batched(data_dir=str(results / tag), num_plates=DATAGEN_REPEAT_PLATES,
+                              seed=99, **common)
+        trees.append(tree_bytes(results / tag))
+    if trees[0] != trees[1]:
+        differ = sorted(k for k in trees[0].keys() | trees[1].keys()
+                        if trees[0].get(k) != trees[1].get(k))
+        raise AssertionError(f"phase 10: the same seed wrote different files: {differ[:5]}")
+    log(f"phase 10: two runs of {DATAGEN_REPEAT_PLATES} plates from seed 99 wrote the same "
+        f"{len(trees[0])} files byte for byte")
+    return DATAGEN_TIMED_PLATES / wall * 3600
+
+
+def phase_inmemory_train(device, results):
+    """Phase 11: the regression Trainer from the port's in-memory datagen."""
+    from fea_tpu_torch.data import InMemoryFEADataset
+    from fea_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    data = InMemoryFEADataset.generate(num_plates=2, conditions_per_plate=4, num_steps=6,
+                                       image_size=IMAGE, mesh_size=2e-2, seed=11, device=device)
+    gen_s = time.perf_counter() - t0
+    if len(data) != 2 * 4 * 5:
+        raise AssertionError(f"phase 11: {len(data)} samples")
+    for sample in data.samples:
+        for key, value in sample.items():
+            if not np.isfinite(value).all():
+                raise AssertionError(f"phase 11: {key} is not finite")
+    cfg = trainer_config(IMAGE, results / "inmemory", conditions_per_plate=4,
+                         num_steps_per_condition=6, num_steps_per_sample_condition=6)
+    trainer = Trainer(cfg, dataset=data, sample_dataset=data, device=device)
+    log(f"phase 11: InMemoryFEADataset.generate: {len(data)} samples (2 plates x 4 conditions x "
+        f"5 steps, {IMAGE} px, mesh 2e-2) in {gen_s:.1f} s")
+    ms, _ = timed_train(trainer, 2, "from the in-memory datagen, f32", "phase 11")
+    del trainer
+    torch.cuda.empty_cache()
+    return ms
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", metavar="TREE",
                         help="also time the kernels of this checkout, as `earlier`")
+    parser.add_argument("--only", metavar="PHASES",
+                        help="run only these of the datagen phases 9,10,11 (comma-separated); "
+                             "such a partial run prints no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1135,6 +1462,23 @@ def main():
 
     results = Path(__file__).resolve().parent / "results" / "chip_smoke"
     shutil.rmtree(results, ignore_errors=True)
+    if args.only:
+        chunk_ms_body = float("nan")
+        try:
+            for n in sorted(int(v) for v in args.only.split(",")):
+                t0 = time.perf_counter()
+                if n == 9:
+                    chunk_ms_body = phase_chunk(device)
+                elif n == 10:
+                    phase_datagen(device, results, chunk_ms_body)
+                elif n == 11:
+                    phase_inmemory_train(device, results)
+                else:
+                    raise SystemExit(f"--only takes the phases 9, 10 and 11, not {n}")
+                log(f"phase {n} done in {time.perf_counter() - t0:.1f} s")
+        finally:
+            shutil.rmtree(results, ignore_errors=True)
+        return 0
     try:
         t0 = time.perf_counter()
         err, flash_ms = phase_kernel(device, earlier)
@@ -1164,6 +1508,15 @@ def main():
         t0 = time.perf_counter()
         phase_fem(device)
         log(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        chunk_ms_body = phase_chunk(device)
+        log(f"phase 9 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_datagen(device, results, chunk_ms_body)
+        log(f"phase 10 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_inmemory_train(device, results)
+        log(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)
 

@@ -80,14 +80,15 @@ def element_dof_indices(triangles, n_nodes):
 def apply_element_stiffness_planar(Ke, dof_idx, incidence_slots, u):
     """y = K u on planar (2N,) dof vectors — the CG-loop hot path.
 
-    Ke: (6,6,M) element-minor; dof_idx: (6,M) from element_dof_indices;
-    incidence_slots: (2N, max_deg). The per-element product contracts over
-    6: a broadcast multiply and a sum in the working dtype, which no
-    tensor-core path touches."""
-    ue = u[dof_idx]  # (6, M)
-    fe = (Ke * ue[None]).sum(dim=1)  # (6, M)
-    fe_flat = torch.cat([fe.reshape(-1), fe.new_zeros(1)])
-    return fe_flat[incidence_slots].sum(dim=1)  # (2N,) planar
+    Ke: (..., 6,6,M) element-minor; dof_idx: (6,M) from
+    element_dof_indices; incidence_slots: (2N, max_deg); u (..., 2N). The
+    leading axes are lanes (conditions) sharing the index tables. The
+    per-element product contracts over 6: a broadcast multiply and a sum in
+    the working dtype, which no tensor-core path touches."""
+    ue = u[..., dof_idx]  # (..., 6, M)
+    fe = (Ke * ue[..., None, :, :]).sum(dim=-2)  # (..., 6, M)
+    fe_flat = torch.cat([fe.flatten(-2), fe.new_zeros(fe.shape[:-2] + (1,))], dim=-1)
+    return fe_flat[..., incidence_slots].sum(dim=-1)  # (..., 2N) planar
 
 
 def apply_element_stiffness(Ke, triangles, incidence_slots, u):
@@ -109,9 +110,18 @@ def scatter_sum(size: int, index: torch.Tensor, values: torch.Tensor) -> torch.T
     `index_put_(accumulate=True)` sorts by index and sums each run of equal
     indices in order (`index_add_` there adds through atomics in any
     order); on the CPU `index_add_` walks the indices in order (there it is
-    `index_put_` that adds from several threads at once)."""
-    out = values.new_zeros(size)
+    `index_put_` that adds from several threads at once).
+
+    values (..., K) with index (K,): each leading lane sums into its own
+    (..., size) row, through one scatter over the flattened lanes."""
     index = index.to(torch.int64)
+    if values.ndim > 1:
+        lead = values.shape[:-1]
+        lanes = values.reshape(-1, values.shape[-1])
+        offsets = torch.arange(lanes.shape[0], device=index.device)[:, None] * size
+        flat = scatter_sum(lanes.shape[0] * size, (offsets + index).reshape(-1), lanes.reshape(-1))
+        return flat.reshape(lead + (size,))
+    out = values.new_zeros(size)
     if values.is_cuda:
         return out.index_put_((index,), values, accumulate=True)
     return out.index_add_(0, index, values)

@@ -45,8 +45,9 @@ class CoarseSpace(NamedTuple):
     arms:    (N, 2) float32 node offset from its aggregate centroid (the
              rotation-mode moment arm).
     n_coarse: static aggregate count (grid cells + 1 outlier slot).
-    members: (n_coarse, width) int32: each aggregate's nodes, padded with
-             N (the index of a zero appended to the vector being summed).
+    members: (n_coarse, width) int32: each aggregate's real nodes, padded
+             with N (the index of a zero appended to the vector being
+             summed); ghosts are left out (aggregate_members).
     """
 
     agg_ids: np.ndarray
@@ -66,18 +67,27 @@ def n_coarse_for_bucket(node_bucket: int, agg_target: int = 16) -> int:
     return min(max(node_bucket // agg_target, 8), 1024)
 
 
-def aggregate_members(agg_ids: np.ndarray, n_coarse: int) -> np.ndarray:
-    """(n_coarse, width) table of node indices by aggregate, in node
-    order, padded with len(agg_ids); width a multiple of 8."""
+def aggregate_members(
+    agg_ids: np.ndarray, n_coarse: int, n_real: Optional[int] = None
+) -> np.ndarray:
+    """(n_coarse, width) table of the first `n_real` nodes' indices by
+    aggregate, in node order, padded with len(agg_ids); width a multiple
+    of 8.
+
+    Bucket-padding ghosts (nodes from `n_real` on) are left out: they are
+    Dirichlet-fixed, so the residual the table sums is zero there, and all
+    of them share the outlier aggregate — thousands of nodes in a large
+    bucket, which would set the width of the whole table."""
     agg_ids = np.asarray(agg_ids, np.int64)
     n = len(agg_ids)
-    counts = np.bincount(agg_ids, minlength=n_coarse)
+    real = agg_ids[: n if n_real is None else n_real]
+    counts = np.bincount(real, minlength=n_coarse)
     width = ((max(int(counts.max()), 1) + 7) // 8) * 8
-    order = np.argsort(agg_ids, kind="stable")
+    order = np.argsort(real, kind="stable")
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    within = np.arange(n) - np.repeat(starts, counts)
+    within = np.arange(len(real)) - np.repeat(starts, counts)
     members = np.full((n_coarse, width), n, dtype=np.int32)
-    members[agg_ids[order], within] = order
+    members[real[order], within] = order
     return members
 
 
@@ -123,7 +133,7 @@ def build_aggregates(
     arms[:n_real] = (real - centroids[compact]).astype(np.float32)
     return CoarseSpace(
         agg_ids=agg_ids, arms=arms, n_coarse=n_coarse,
-        members=aggregate_members(agg_ids, n_coarse),
+        members=aggregate_members(agg_ids, n_coarse, n_real),
     )
 
 
@@ -180,12 +190,13 @@ def coarse_inverse(Kc: torch.Tensor) -> torch.Tensor:
     """Explicit Kc^-1 via Cholesky (one-time); NaN-safe: a failed
     factorization (a pathological condition) degrades to the zero matrix,
     i.e. plain block-Jacobi. `cholesky_ex` reports the failure as a value
-    on the device: nothing raises and the host reads nothing."""
+    on the device: nothing raises and the host reads nothing. Kc may carry
+    leading batch axes; each matrix degrades on its own."""
     L, info = torch.linalg.cholesky_ex(Kc)
-    eye = torch.eye(Kc.shape[0], dtype=Kc.dtype, device=Kc.device)
-    inv = torch.cholesky_solve(eye, L)
-    ok = (info == 0) & torch.isfinite(inv).all()
-    return torch.where(ok, inv, torch.zeros_like(inv))
+    eye = torch.eye(Kc.shape[-1], dtype=Kc.dtype, device=Kc.device)
+    inv = torch.cholesky_solve(eye.expand(Kc.shape), L)
+    ok = (info == 0) & torch.isfinite(inv).all(dim=-1).all(dim=-1)
+    return torch.where(ok[..., None, None], inv, torch.zeros_like(inv))
 
 
 def coarse_apply(

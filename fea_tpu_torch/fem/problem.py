@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..utils.device import cuda_device
+from ..utils.device import resolve_device
 from .assembly import (
     apply_element_stiffness_planar,
     assemble_scipy_csr,
@@ -69,10 +69,6 @@ def _require_true_f32() -> None:
             "FEM solves need true f32 matmuls: set "
             "torch.backends.cuda.matmul.allow_tf32 = False"
         )
-
-
-def _device(device) -> torch.device:
-    return torch.device(device) if device is not None else cuda_device()
 
 
 def element_materials(
@@ -296,7 +292,7 @@ class StaticProblem:
         Runs on the CUDA device unless `device` names another. The host
         reads the CG loop's condition once per `check_every` iterations
         (solver.pcg_solve); the result does not depend on it."""
-        device = _device(device)
+        device = resolve_device(device)
         if per_step_solves:
             return self._solve_per_step(
                 tol=tol, max_iters=max_iters, dtype=dtype, accept_tol=accept_tol,
@@ -421,6 +417,20 @@ def _solve_core(
     return res, eps1.T, sig1.T
 
 
+def ramp_factors(num_steps: int, dtype, device) -> torch.Tensor:
+    """The load-ramp factors t_k = linspace(0, 1, num_steps) as
+    fea_tpu's compiled `jnp.linspace` computes them in `dtype`: k times the
+    reciprocal of (num_steps - 1) rounded to that dtype (XLA folds the
+    division by a constant into that product), then the endpoint 1.
+    fea_tpu's f32 solves take exactly these values."""
+    if num_steps < 2:
+        return torch.zeros(num_steps, dtype=dtype, device=device)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    recip = float(np_dtype(1.0) / np_dtype(num_steps - 1))
+    t = torch.arange(num_steps - 1, dtype=dtype, device=device) * recip
+    return torch.cat([t, torch.ones(1, dtype=dtype, device=device)])
+
+
 def _solve_kernel(
     coords,
     triangles,
@@ -448,7 +458,7 @@ def _solve_kernel(
         agg_ids=agg_ids, arms=arms, members=members, n_coarse=n_coarse,
         check_every=check_every,
     )
-    t = torch.linspace(0.0, 1.0, num_steps, dtype=torch.float64, device=coords.device).to(dtype)
+    t = ramp_factors(num_steps, dtype, coords.device)
     return SolveResult(
         displacements=t[:, None, None] * res.x[None],
         strain=t[:, None, None] * eps1[None],
@@ -530,7 +540,7 @@ def solve_refined(
     by the application runner and parity benchmarks; bulk datagen keeps the
     cheap single-shot f32 path (8-bit image outputs don't resolve beyond
     ~4e-3 anyway)."""
-    device = _device(device)
+    device = resolve_device(device)
     n = len(problem.coords)
     Ke, B, D, _area = element_stiffness_np(
         problem.coords, problem.triangles, problem.young, problem.poisson

@@ -8,6 +8,7 @@ from .polygon import (
     segments_intersect,
     union_exterior,
 )
+from .sampler import GeometrySampler
 
 __all__ = [
     "GeometryError",
@@ -18,4 +19,5 @@ __all__ = [
     "polygon_area",
     "segments_intersect",
     "union_exterior",
+    "GeometrySampler",
 ]

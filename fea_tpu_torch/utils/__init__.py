@@ -1,3 +1,3 @@
-from .device import cuda_device
+from .device import cuda_device, resolve_device
 
-__all__ = ["cuda_device"]
+__all__ = ["cuda_device", "resolve_device"]

@@ -9,3 +9,9 @@ def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False")
     return torch.device("cuda")
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; None means the CUDA device (and raises
+    without one)."""
+    return torch.device(device) if device is not None else cuda_device()

@@ -268,9 +268,10 @@ def test_coarse_space_matches(name, dtype):
     np.testing.assert_array_equal(space.agg_ids, jspace.agg_ids)
     np.testing.assert_array_equal(space.arms, jspace.arms)
     assert space.members.shape[0] == n_coarse and space.members.shape[1] % 8 == 0
-    for a in range(n_coarse):  # each aggregate's nodes, once, in node order
+    n_real = n if p.n_real is None else p.n_real
+    for a in range(n_coarse):  # each aggregate's real nodes, once, in node order
         row = space.members[a][space.members[a] < n]
-        np.testing.assert_array_equal(row, np.where(space.agg_ids == a)[0])
+        np.testing.assert_array_equal(row, np.where(space.agg_ids[:n_real] == a)[0])
 
     (coords, tris, young, poisson, free), (jc, jt, jy, jp, jfree) = both_arrays(p, np_dtype, t_dtype)
     Ke = elasticity.element_stiffness(coords, tris, elasticity.plane_strain_stiffness_em(young, poisson))[0]
@@ -389,6 +390,27 @@ def test_check_every_changes_nothing():
     # the budget ends a solve as the while_loop's k < max_iters does
     short = p.solve(device="cpu", max_iters=10, check_every=32)
     assert int(short.iterations) == 10 and not short.success
+
+
+def test_ramp_factors_match_jnp_linspace():
+    """The f32 ramp factors are bit-equal to fea_tpu's `jnp.linspace` with
+    x64 off (its f32 solves on the chip) for 2 to 32 steps, and the f64
+    ones to `jnp.linspace` in x64."""
+    import jax
+    import jax.numpy as jnp
+
+    for n in range(2, 33):
+        with jax.enable_x64(False):
+            want32 = np.asarray(jnp.linspace(0.0, 1.0, n).astype(jnp.float32))
+        got32 = problem.ramp_factors(n, torch.float32, "cpu").numpy()
+        assert got32.dtype == want32.dtype == np.float32
+        np.testing.assert_array_equal(got32, want32)
+        want64 = np.asarray(jnp.linspace(0.0, 1.0, n, dtype=jnp.float64))
+        np.testing.assert_array_equal(problem.ramp_factors(n, torch.float64, "cpu").numpy(), want64)
+    p = make_problem("square", mesh_size=0.3, num_steps=11)
+    res = p.solve(device="cpu", dtype=torch.float32)
+    t = problem.ramp_factors(11, torch.float32, "cpu")
+    assert torch.equal(res.displacements, t[:, None, None] * res.displacements[-1][None])
 
 
 def test_padded_matches_unpadded():

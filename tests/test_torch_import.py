@@ -39,6 +39,20 @@ MODULES = [
     "fea_tpu_torch.fem.coarse",
     "fea_tpu_torch.fem.problem",
     "fea_tpu_torch.fem.direct",
+    "fea_tpu_torch.fem.banded",
+    "fea_tpu_torch.fem.flatgroup",
+    "fea_tpu_torch.geometry.sampler",
+    "fea_tpu_torch.raster",
+    "fea_tpu_torch.raster.locate",
+    "fea_tpu_torch.raster.rasterizer",
+    "fea_tpu_torch.datagen",
+    "fea_tpu_torch.datagen.regions",
+    "fea_tpu_torch.datagen.conditions",
+    "fea_tpu_torch.datagen.writers",
+    "fea_tpu_torch.datagen.pipeline",
+    "fea_tpu_torch.datagen.batched",
+    "fea_tpu_torch.data.arrays",
+    "fea_tpu_torch.utils.profiling",
     "fea_tpu_torch.train",
     "fea_tpu_torch.train.ema",
     "fea_tpu_torch.train.optim",
