@@ -81,6 +81,30 @@ Phase 11: the regression Trainer at full width from
          InMemoryFEADataset.generate (2 plates x 4 conditions x 6 steps,
          256 px, mesh 2e-2, seed 11): a warm-up and one timed f32 step,
          18 + 18 GroupNorm+SiLU launches per step.
+Phase 12: the diffusion denoiser at full width with full attention at
+         every stage and the self-conditioning input (FDNUNet input_dim
+         64, 4 stages, flash attention, num_condition_channels 2, seeded
+         weights). At 64 px one forward against the same model through
+         plain attention; at 256 px, batch 2, one forward: 9 flash
+         launches (one per FullAttention site) and 9 GroupNorm+SiLU; its
+         stage-0 flash call (BH 8, Nq 65,536, Nk 65,540, D 32) against the
+         plain version on its first 1,024 query rows over every key; device
+         ms of the forward and of the stage-0 call beside its bound.
+Phase 13: the pipeline end to end through the port's CLI
+         (`fea_tpu_torch.cli.main` in this process, and `python -m
+         fea_tpu_torch --help` once as a subprocess): generate --batched
+         (6 train plates, seed 1234; 2 held-out, seed 99; 4 conditions x 6
+         steps, mesh 1e-2, 512 px, meshes saved) and one sequential plate at
+         256 px, every plate with the reference's file set; store (samples
+         equal the PNG dataset's); train at full width from the store held
+         on the card with EMA, 40 steps and one milestone (18 + 18
+         GroupNorm+SiLU launches per step, 18 per sample batch, the log's
+         40 steps); sample raw and with EMA (18 per batch) and accuracy on
+         both (finite MAE / MSE / RMSE); app gusset at 512 px with the
+         checkpoint's EMA weights (converged, raster round trip under
+         1e-2, its images within 1 gray level of the same app on the CPU);
+         train-diffusion at batch 4, 3 steps (9 + 9 per step). Prints each
+         command's seconds, peak device memory and bytes written.
 
 Kernel times are device times: CUDA events around calls that the host
 queued behind a device-side wait, each function timed in turns.
@@ -91,7 +115,8 @@ checkout's fea_tpu_torch/_build.
 
 The stores (about 7.6 GB at the production count), the checkpoints and
 the datagen trees are written under results/chip_smoke/ and deleted at
-the end. `--only 9,10,11` runs only those datagen phases (no result line).
+the end. `--only 9,10,11` runs only those phases (any of 1 and 9-13; no
+result line).
 
 Prints the card, a JSON line of the kernels, and as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -133,7 +158,8 @@ SAMPLE_ATOL = 1e-3  # 25 steps, compared on the clipped output
 CPU_ATOL = 1e-4  # card vs CPU on a small input, f32 without TF32
 # the redesigned kernels' designs, for the kernels line
 REDESIGNED = {
-    "flash_attention": "tensor-core mma.sync, 3xTF32 for f32",
+    "flash_attention": "tensor-core mma.sync, 3xTF32 for f32; each KV tile's P.V accumulated "
+                       "apart and added to the running sum by a rounded FMA",
     "group_norm_silu_fwd": "x read once into a thread-block cluster's shared memory; "
                            "two launches with 16-byte vectors where a group does not fit",
     "group_norm_silu_bwd": "two launches over the forward's saved coefficients",
@@ -1424,12 +1450,290 @@ def phase_inmemory_train(device, results):
     return ms
 
 
+FULL_ATTENTION_BATCH = 2
+FULL_ATTENTION_SMALL = 64  # px: the model against itself through plain attention
+STAGE0_ROWS = 1024  # query rows of the stage-0 flash call held against the plain version
+
+
+def phase_full_attention(device, earlier):
+    """Phase 12: the denoiser with full attention at every stage and the
+    self-conditioning input. Returns the flash launches of the 256 px
+    forward, the stage-0 call's max abs error and ms, and its bound; given
+    `earlier` (another tree's ops), that kernel's error and ms on the same
+    call too."""
+    from fea_tpu_torch.models import attention, make_diffusion_model
+    from fea_tpu_torch.models.fdnunet import FDNUNet
+    from fea_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+
+    kw = dict(input_dim=64, num_stages=4, use_full_attention=True, num_condition_channels=2)
+    generator = torch.Generator(device=device).manual_seed(SEED + 12)
+    model = make_diffusion_model(image_size=IMAGE, use_flash_attention=True, device=device,
+                                 generator=generator, **kw).model.eval()
+    sites = [n for n, m in model.named_modules() if isinstance(m, attention.FullAttention)]
+    if len(sites) != 2 * 4 + 1:  # down and up at each of 4 stages, and the middle
+        raise AssertionError(f"FullAttention at {sites}")
+    log(f"phase 12: FDNUNet with full attention and self-conditioning: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, FullAttention at {sites}")
+    with torch.device("meta"):
+        plain = FDNUNet(num_channels=2, num_auxiliary_condition_channels=5,
+                        use_time_embedding=True, use_flash_attention=False, **kw)
+    plain.to_empty(device=device).load_state_dict(model.state_dict())
+    plain.eval()
+
+    def inputs(size, seed):
+        rng = np.random.default_rng(seed)
+        x, cond, self_cond = (
+            torch.from_numpy(rng.normal(size=(FULL_ATTENTION_BATCH, size, size, c))
+                             .astype(np.float32)).to(device)
+            for c in (2, 5, 2)
+        )
+        return x, cond, self_cond, torch.full((FULL_ATTENTION_BATCH,), 500.0, device=device)
+
+    x, cond, self_cond, t = inputs(FULL_ATTENTION_SMALL, SEED)
+    with torch.no_grad():
+        err_small = max_abs_err(model(x, cond, self_cond, time=t),
+                                plain(x, cond, self_cond, time=t))
+    log(f"phase 12: {FULL_ATTENTION_SMALL} px, batch {FULL_ATTENTION_BATCH}: flash vs plain "
+        f"attention max abs diff {err_small:.3e} (tolerance {FLASH_VS_PLAIN_ATOL})")
+    if err_small > FLASH_VS_PLAIN_ATOL:
+        raise AssertionError(f"flash and plain forwards differ by {err_small}")
+    del plain
+
+    # 256 px: the stage-0 call (65,536 queries) is recorded on its way
+    recorded = {}
+
+    def recording(q, k, v):
+        out = flash_attention(q, k, v)
+        if q.shape[1] == IMAGE * IMAGE and not recorded:
+            recorded.update(q=q, k=k, v=v, out=out)
+        return out
+
+    x, cond, self_cond, t = inputs(IMAGE, SEED + 1)
+    forward = torch.no_grad()(lambda: model(x, cond, self_cond, time=t))
+    forward()  # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    reset_counts()
+    with mock.patch.object(attention, "flash_attention", recording):
+        out = forward()
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != (len(sites), 9, 0):
+        raise AssertionError(f"launches {launches}, want ({len(sites)}, 9, 0)")
+    if out.shape != (FULL_ATTENTION_BATCH, IMAGE, IMAGE, 2) or not torch.isfinite(out).all():
+        raise AssertionError(f"output {tuple(out.shape)} is not finite or not the shape")
+    q, k, v = recorded["q"], recorded["k"], recorded["v"]
+    bh, nq, d = q.shape
+    nk = k.shape[1]
+    if (bh, nq, nk, d) != (4 * FULL_ATTENTION_BATCH, IMAGE * IMAGE, IMAGE * IMAGE + 4, 32):
+        raise AssertionError(f"stage-0 call at {(bh, nq, nk, d)}")
+    # the plain version's scores for all of this call would take
+    # BH Nq Nk 4 bytes (137 GB); on the first rows over every key it is
+    # exact for those rows
+    want = flash_attention_reference(q[:, :STAGE0_ROWS], k, v)
+    got = recorded["out"][:, :STAGE0_ROWS]
+    err_stage0 = max_abs_err(got, want)
+    fns = {"kernel": lambda: flash_attention(q, k, v)}
+    if earlier is not None:
+        fns["earlier"] = lambda: earlier.flash_attention(q, k, v)
+        err_earlier = max_abs_err(fns["earlier"]()[:, :STAGE0_ROWS], want)
+        log(f"phase 12: stage-0 call, earlier kernel: max abs err vs plain {err_earlier:.3e}")
+    torch.testing.assert_close(got, want, **F32_TOL)
+    del want, got
+    recorded.clear()
+    torch.cuda.empty_cache()
+
+    forward_ms = cuda_ms(forward, 3)
+    stage0 = in_turns(fns, 5)
+    stage0_ms = stage0["kernel"]
+    ops = 4 * bh * nq * nk * d
+    bound, bound_by = bound_ms(4 * (2 * bh * nq * d + 2 * bh * nk * d), ops, TF32_TENSOR_FLOPS)
+    log(f"phase 12: {IMAGE} px, batch {FULL_ATTENTION_BATCH}: launches (flash, GroupNorm+SiLU "
+        f"forward, backward) {launches}; forward {forward_ms:.3f} ms of device time")
+    log(f"phase 12: stage-0 flash call {(bh, nq, nk, d)} f32: {stage0_ms:.4f} ms; max abs err "
+        f"vs plain on {STAGE0_ROWS} query rows {err_stage0:.3e} (tolerance {F32_TOL}); bound "
+        f"{bound:.4f} ms ({bound_by}: {ops / 1e12:.3f} TFLOP at the TF32 tensor-core peak), "
+        f"the 3xTF32 floor {3 * ops / TF32_TENSOR_FLOPS * 1e3:.4f} ms; {stage0_ms / bound:.2f}x "
+        f"the bound" + (f"; earlier kernel {stage0['earlier']:.4f} ms" if earlier else ""))
+    del model, q, k, v
+    torch.cuda.empty_cache()
+    return dict(launches_full_attention=launches[0], max_abs_err_stage0=err_stage0,
+                ms_stage0=stage0_ms, bound_ms_stage0=bound,
+                **({"earlier_ms_stage0": stage0["earlier"]} if earlier else {}))
+
+
+CLI_TRAIN_STEPS = 40
+CLI_DIFFUSION_STEPS = 3
+CLI_CONDITIONS, CLI_STEPS = 4, 6
+CLI_TRAIN_PLATES, CLI_HELD_OUT_PLATES = 6, 2
+CLI_DATA_IMAGE, CLI_MESH_SIZE = 512, 1e-2  # bench.py's datagen config
+APP_IMAGE = 512
+APP_PNGS = ("geometry", "outline", "constraint", "force", "displacement_x", "displacement_y")
+
+
+def tree_size(root):
+    return sum(p.stat().st_size for p in Path(root).rglob("*") if p.is_file())
+
+
+def phase_cli(device, results):
+    """Phase 13: the pipeline end to end through the port's CLI, in this
+    process (`fea_tpu_torch.cli.main`), so that the launch counts can be
+    read after each command. Returns them by command."""
+    from PIL import Image
+
+    from fea_tpu_torch import cli
+    from fea_tpu_torch.apps import run_application
+    from fea_tpu_torch.data import FEADataset, StoredFEADataset
+    from fea_tpu_torch.utils.logs import parse_train_log
+
+    proc = subprocess.run([sys.executable, "-m", "fea_tpu_torch", "--help"],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=120)
+    if proc.returncode != 0 or "train-diffusion" not in proc.stdout:
+        raise AssertionError(f"python -m fea_tpu_torch --help: {proc.returncode} {proc.stderr}")
+    log("phase 13: python -m fea_tpu_torch --help exits 0")
+
+    root = results / "cli"
+    root.mkdir(parents=True)
+    launches = {}
+
+    def run(tag, *argv):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = tree_size(root)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[tag] = counts()
+        log(f"phase 13: {tag}: {wall:.1f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+            f"{(tree_size(root) - before) / 1e9:.3f} GB written (net); launches (flash, "
+            f"GroupNorm+SiLU forward, backward) {launches[tag]}")
+        return out
+
+    def want_launches(tag, fwd, bwd):
+        if launches[tag] != (0, fwd, bwd):
+            raise AssertionError(f"{tag}: launches {launches[tag]}, want (0, {fwd}, {bwd})")
+
+    train, held, seq = root / "train", root / "held_out", root / "sequential"
+    data = ("--conditions_per_plate", CLI_CONDITIONS, "--steps_per_condition", CLI_STEPS,
+            "--mesh_size", CLI_MESH_SIZE, "--save_displacement", "--save_meshes")
+    run("generate --batched (train)", "generate", "--batched", "--num_plates", CLI_TRAIN_PLATES,
+        "--image_size", CLI_DATA_IMAGE, *data, "--data_dir", train, "--seed", 1234)
+    run("generate --batched (held out)", "generate", "--batched", "--num_plates",
+        CLI_HELD_OUT_PLATES, "--image_size", CLI_DATA_IMAGE, *data, "--data_dir", held,
+        "--seed", 99)
+    run("generate (sequential)", "generate", "--num_plates", 1, "--image_size", IMAGE, *data,
+        "--data_dir", seq, "--seed", 5)
+    for tree, plates in ((train, CLI_TRAIN_PLATES), (held, CLI_HELD_OUT_PLATES), (seq, 1)):
+        for plate in range(1, plates + 1):
+            plate_files_ok(str(tree / str(plate)), CLI_CONDITIONS, CLI_STEPS)
+
+    run("store", "store", "--data_dir", train, "--store_dir", root / "store", "--num_plates",
+        CLI_TRAIN_PLATES, "--image_size", IMAGE, "--conditions_per_plate", CLI_CONDITIONS,
+        "--steps_per_condition", CLI_STEPS)
+    png = FEADataset(str(train), image_size=IMAGE, conditions_per_plate=CLI_CONDITIONS,
+                     num_steps=CLI_STEPS)
+    stored = StoredFEADataset(str(root / "store"))
+    if len(stored) != len(png) or len(png) != CLI_TRAIN_PLATES * CLI_CONDITIONS * (CLI_STEPS - 1):
+        raise AssertionError(f"{len(stored)} stored samples, {len(png)} PNG samples")
+    for i in range(0, len(png), 7):
+        leaf = samples_differ(png[i], stored[i], bitwise=False)
+        if leaf is not None:
+            raise AssertionError(f"store sample {i} differs from the PNG sample in {leaf}")
+
+    res = root / "results"
+    model = ("--image_size", IMAGE, "--input_dim", 64, "--num_stages", 4)
+    sample_set = CLI_HELD_OUT_PLATES * CLI_CONDITIONS * (CLI_STEPS - 1)
+    sample_batches = math.ceil(sample_set / TRAIN_BATCH)
+    run("train", "train", "--data_dir", train, "--sample_data_dir", held, "--dataset_store",
+        root / "store", "--device_resident_store", "--use_ema_model", "--batch_size", TRAIN_BATCH,
+        "--num_steps", CLI_TRAIN_STEPS, "--num_steps_per_milestone", CLI_TRAIN_STEPS,
+        "--num_steps_per_condition", CLI_STEPS, "--num_steps_per_sample_condition", CLI_STEPS,
+        "--conditions_per_plate", CLI_CONDITIONS, "--num_sample_conditions_per_plate",
+        CLI_CONDITIONS, "--no_progress_bar", "--results_dir", res, *model)
+    # 18 + 18 per step, and 18 forward per batch of the milestone's samples
+    want_launches("train", 18 * (CLI_TRAIN_STEPS + sample_batches), 18 * CLI_TRAIN_STEPS)
+    (train_log,) = res.glob(f"train-e{CLI_TRAIN_STEPS}-b{TRAIN_BATCH}-*.log")
+    parsed = parse_train_log(str(train_log))
+    if (list(parsed["steps"]) != list(range(CLI_TRAIN_STEPS))
+            or not np.isfinite(parsed["losses"]).all() or len(parsed["sample_losses"]) != 1):
+        raise AssertionError(f"train log {parsed}")
+    log(f"phase 13: train log: {len(parsed['steps'])} steps, loss {parsed['losses'][0]:.5f} -> "
+        f"{parsed['losses'][-1]:.5f}, sample loss {parsed['sample_losses'][0]:.5f}")
+    # the commands below read model-final only
+    for path in (res / "model-best", res / "model-best.zip", res / "model-final.zip"):
+        shutil.rmtree(path) if path.is_dir() else path.unlink()
+
+    sample = ("sample", "--milestone", "final", "--data_dir", held, "--sample_data_dir", held,
+              "--batch_size", TRAIN_BATCH, "--num_steps_per_condition", CLI_STEPS,
+              "--num_sample_conditions_per_plate", CLI_CONDITIONS, "--results_dir", res, *model)
+    accuracy = ("accuracy", "--data_dir", held, "--results_dir", res, "--milestone", "final",
+                "--image_size", IMAGE, "--num_plates", CLI_HELD_OUT_PLATES,
+                "--conditions_per_plate", CLI_CONDITIONS, "--steps_per_condition", CLI_STEPS)
+    scores = {}
+    for tag, flags in (("raw", ()), ("EMA", ("--use_ema",))):
+        run(f"sample ({tag})", *sample, *flags)
+        want_launches(f"sample ({tag})", 18 * sample_batches, 0)
+        written = len(list((res / "final").rglob("sample_*.png")))
+        if written != 2 * sample_set:
+            raise AssertionError(f"sample ({tag}) wrote {written} PNGs")
+        scores[tag] = run(f"accuracy ({tag})", *accuracy)
+        if tag == "raw":  # keep both passes, as examples/eval_surrogate.sh does
+            (res / "final").rename(res / "final-raw-samples")
+    for tag, s in scores.items():
+        log(f"phase 13: accuracy {tag}: MAE {s['mae']:.6f}, MSE {s['mse']:.6f}, RMSE "
+            f"{s['rmse']:.6f} over {len(s['mae_values'])} samples")
+        if not all(math.isfinite(s[k]) for k in ("mae", "mse", "rmse")):
+            raise AssertionError(f"accuracy {tag} is not finite: {s}")
+
+    out = run("app gusset --checkpoint --use_ema", "app", "gusset", "--checkpoint",
+              res / "model-final", "--use_ema", "--image_size", APP_IMAGE, "--output_dir",
+              root / "app")
+    want_launches("app gusset --checkpoint --use_ema", 18, 0)
+    log(f"phase 13: app gusset: {out}")
+    if not (out["converged"] and out["raster_roundtrip_mae"] < 1e-2
+            and math.isfinite(out["pred_mae"])):
+        raise AssertionError(f"app gusset: {out}")
+    t0 = time.perf_counter()
+    on_cpu = run_application("gusset", output_dir=str(root / "app_cpu"), image_size=APP_IMAGE,
+                             device="cpu")
+    diffs = {}
+    for name in APP_PNGS:
+        card, cpu = (np.asarray(Image.open(root / d / f"{name}.png"), dtype=np.int16)
+                     for d in ("app", "app_cpu"))
+        diffs[name] = int(np.abs(card - cpu).max())
+    log(f"phase 13: app gusset on the CPU in {time.perf_counter() - t0:.1f} s: raster round trip "
+        f"{on_cpu['raster_roundtrip_mae']:.6f} (card {out['raster_roundtrip_mae']:.6f}); the "
+        f"card's PNGs against the CPU's, max gray-level difference {diffs}")
+    if max(diffs.values()) > 1:
+        raise AssertionError(f"the card's app images differ from the CPU's by {diffs}")
+
+    run("train-diffusion", "train-diffusion", "--data_dir", train, "--image_size", IMAGE,
+        "--batch_size", DIFFUSION_BATCH, "--num_steps", CLI_DIFFUSION_STEPS,
+        "--num_steps_per_milestone", CLI_DIFFUSION_STEPS, "--conditions_per_plate",
+        CLI_CONDITIONS, "--num_steps_per_condition", CLI_STEPS, "--results_dir",
+        root / "results_diffusion")
+    want_launches("train-diffusion", 9 * CLI_DIFFUSION_STEPS, 9 * CLI_DIFFUSION_STEPS)
+    state = torch.load(root / "results_diffusion" / "model-final" / "state.pt",
+                       map_location="cpu", mmap=True, weights_only=True)
+    if state["step"] != CLI_DIFFUSION_STEPS or not all(
+            torch.isfinite(t).all() for t in state["params"].values()):
+        raise AssertionError(f"train-diffusion: step {state['step']} or non-finite params")
+    del state
+    torch.cuda.empty_cache()
+    fwd = {tag: n for tag, (_, n, _) in launches.items() if n}
+    bwd = {tag: n for tag, (_, _, n) in launches.items() if n}
+    return fwd, bwd
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", metavar="TREE",
                         help="also time the kernels of this checkout, as `earlier`")
     parser.add_argument("--only", metavar="PHASES",
-                        help="run only these of the datagen phases 9,10,11 (comma-separated); "
+                        help="run only these of the phases 1 and 9-13 (comma-separated); "
                              "such a partial run prints no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1467,14 +1771,20 @@ def main():
         try:
             for n in sorted(int(v) for v in args.only.split(",")):
                 t0 = time.perf_counter()
-                if n == 9:
+                if n == 1:
+                    phase_kernel(device, earlier)
+                elif n == 9:
                     chunk_ms_body = phase_chunk(device)
                 elif n == 10:
                     phase_datagen(device, results, chunk_ms_body)
                 elif n == 11:
                     phase_inmemory_train(device, results)
+                elif n == 12:
+                    phase_full_attention(device, earlier)
+                elif n == 13:
+                    phase_cli(device, results)
                 else:
-                    raise SystemExit(f"--only takes the phases 9, 10 and 11, not {n}")
+                    raise SystemExit(f"--only takes the phases 1 and 9 to 13, not {n}")
                 log(f"phase {n} done in {time.perf_counter() - t0:.1f} s")
         finally:
             shutil.rmtree(results, ignore_errors=True)
@@ -1517,6 +1827,12 @@ def main():
         t0 = time.perf_counter()
         phase_inmemory_train(device, results)
         log(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        full_attention = phase_full_attention(device, earlier)
+        log(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cli_fwd, cli_bwd = phase_cli(device, results)
+        log(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)
 
@@ -1540,18 +1856,18 @@ def main():
             "plain_ms": flash_ms["plain"], "bound_ms": flash_bound, "bound_by": flash_by,
             "library_ms": flash_ms["library"], "bound_unit": "tensor cores, TF32 at 495 TFLOP/s",
             **({"earlier_ms": flash_ms["earlier"]} if earlier is not None else {}),
-            "redesigned": REDESIGNED["flash_attention"],
+            "redesigned": REDESIGNED["flash_attention"], **full_attention,
         },
         {
             "name": "group_norm_silu_fwd", "route": "cuda", "source": gn_source,
             "replaces": "fea_tpu/ops/fused_norm.py:115", "launches": gn_fwd,
-            "launches_from_store": store_fwd, **gn["fwd"],
+            "launches_from_store": store_fwd, "launches_cli": cli_fwd, **gn["fwd"],
             "redesigned": REDESIGNED["group_norm_silu_fwd"],
         },
         {
             "name": "group_norm_silu_bwd", "route": "cuda", "source": gn_source,
             "replaces": "fea_tpu/ops/fused_norm.py:132", "launches": gn_bwd,
-            "launches_from_store": store_bwd, **gn["bwd"],
+            "launches_from_store": store_bwd, "launches_cli": cli_bwd, **gn["bwd"],
             "redesigned": REDESIGNED["group_norm_silu_bwd"],
         },
     ]}))

@@ -5,7 +5,12 @@ conditional DDPM (`models`), the regression and diffusion trainers
 (`train`) with the PNG dataset, the condition store and the
 device-resident store (`data`), the flash-attention and fused
 GroupNorm+SiLU kernels written by hand in CUDA for Hopper (`ops`, `csrc`),
-and the single-mesh FEM core (`fem`) over the CDT mesher (`mesh`,
-`geometry`, `materials`). Public model functions keep fea_tpu's NHWC
-layout; FEM arrays keep its element-minor, planar-dof layouts.
+the FEM core (`fem`: the single-mesh solve and the flat plate-group solve)
+over the CDT mesher (`mesh`, `geometry`, `materials`), the raster
+(`raster`), datagen, sequential and batched (`datagen`), the accuracy
+metrics (`metrics`), the application runner (`apps`), the training-log
+tools (`utils.logs`) and the CLI (`cli`, `python -m fea_tpu_torch`).
+Public model functions keep fea_tpu's NHWC layout; FEM arrays keep its
+element-minor, planar-dof layouts. Multi-GPU (fea_tpu's `parallel`) is
+still to port.
 """

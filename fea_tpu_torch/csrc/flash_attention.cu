@@ -24,7 +24,9 @@
 //     hi and lo (two products against the exact bf16 V), so P is not
 //     rounded to 8 bits; only the output is.
 //   - A warp owns 16 query rows and keeps their q fragments (split once),
-//     its f32 accumulator and its running max and sum in registers. A block
+//     its f32 accumulator and its running max and sum in registers; each KV
+//     tile's P.V goes into a zeroed tile accumulator and then into the
+//     running one by a rounded FMA (the error stays flat in Nk). A block
 //     is 4 warps over 32 query rows: two warps per 16-row tile walk the KV
 //     tiles in turn (even tiles / odd tiles) and merge their (max, sum, acc)
 //     through shared memory at the end. At the serving shape that is 256
@@ -366,12 +368,21 @@ __global__ void __launch_bounds__(kThreads)
           l[i >> 1] += s[n][i];
         }
       }
+      // the tile's P.V in an accumulator of its own, then one rounded FMA
+      // into the running one: the tensor cores' adds into their C operand
+      // lose low bits with a bias (about 3e-8 of the output per mma), which
+      // over the 12,288 mma of a 65,540-key walk would come to 3e-4
+      float pv_tile[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        pv_tile[n][0] = pv_tile[n][1] = pv_tile[n][2] = pv_tile[n][3] = 0.f;
+      }
+      mma.template pv<BK>(pv_tile, s, ks + C::kTileElems, C::kStride, g, t);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[n][i] *= corr[i >> 1];
+        for (int i = 0; i < 4; ++i) acc[n][i] = fmaf(acc[n][i], corr[i >> 1], pv_tile[n][i]);
       }
-      mma.template pv<BK>(acc, s, ks + C::kTileElems, C::kStride, g, t);
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.device import resolve_device
+
 
 def _flatten(tree: Mapping, prefix: str = ""):
     for name, value in tree.items():
@@ -55,11 +57,11 @@ def from_flax(params: Mapping) -> dict:
     return state
 
 
-def load_flax(module: nn.Module, params: Mapping, device="cpu") -> nn.Module:
+def load_flax(module: nn.Module, params: Mapping, device=None) -> nn.Module:
     """Allocate `module` (built on any device, meta included) on `device`
-    and load `params` into it. The strict load raises unless every
-    parameter is matched by one flax leaf of the same shape and every leaf
-    is used."""
-    module.to_empty(device=device)
+    (the CUDA device unless the caller names another) and load `params`
+    into it. The strict load raises unless every parameter is matched by
+    one flax leaf of the same shape and every leaf is used."""
+    module.to_empty(device=resolve_device(device))
     module.load_state_dict(from_flax(params))
     return module

@@ -48,6 +48,7 @@ class GaussianDiffusion:
         timesteps: int = 1000,
         objective: str = "pred_noise",
         beta_schedule: str = "cosine",
+        self_condition: bool = False,
     ):
         if objective not in ("pred_noise", "pred_x0"):
             raise ValueError(f"unknown objective {objective}")
@@ -58,6 +59,9 @@ class GaussianDiffusion:
         self.model = model
         self.timesteps = timesteps
         self.objective = objective
+        # stored as fea_tpu stores it; neither package's loss or sampler
+        # reads it
+        self.self_condition = self_condition
 
         betas = BETA_SCHEDULES[beta_schedule](timesteps)
         alphas = 1.0 - betas

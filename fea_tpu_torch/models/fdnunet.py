@@ -49,9 +49,19 @@ def _check_divisible(x, num_stages):
         )
 
 
+def _self_condition(x, x_self_condition):
+    """x with the self-condition concatenated (zeros when absent): the
+    input of a model built with num_condition_channels."""
+    if x_self_condition is None:
+        x_self_condition = torch.zeros_like(x)
+    return torch.cat([x, x_self_condition], dim=-1)
+
+
 class FDNUNetEncoder(nn.Module):
     """Down path + middle. forward returns (middle, hidden_states x
-    2 * num_stages, residual), all NHWC."""
+    2 * num_stages, residual), all NHWC. With num_condition_channels (any
+    value, as in fea_tpu) the input is x and the self-condition
+    concatenated, so the initial conv takes 2 * num_channels."""
 
     def __init__(
         self,
@@ -60,13 +70,16 @@ class FDNUNetEncoder(nn.Module):
         num_stages: int = 4,
         num_channels: int = 3,
         num_auxiliary_condition_channels: int = 3,
+        num_condition_channels: Optional[int] = None,
         num_groups: int = 8,
     ):
         super().__init__()
         self.num_stages = num_stages
+        self.num_condition_channels = num_condition_channels
         dims = _stage_dims(input_dim, initial_dim, num_stages)
 
-        self.initial_conv = conv3x3(num_channels, dims[0])
+        in_channels = num_channels * (1 if num_condition_channels is None else 2)
+        self.initial_conv = conv3x3(in_channels, dims[0])
         self.condition_feature_extractor = ConditionFeatureExtractor(
             num_auxiliary_condition_channels, dims
         )
@@ -86,8 +99,10 @@ class FDNUNetEncoder(nn.Module):
                 dims[-1], dims[-1], num_groups=num_groups, feature_dim=dims[-1],
             ))
 
-    def forward(self, x, x_auxiliary_condition):
+    def forward(self, x, x_auxiliary_condition, x_self_condition=None):
         _check_divisible(x, self.num_stages)
+        if self.num_condition_channels is not None:
+            x = _self_condition(x, x_self_condition)
         x = self.initial_conv(nchw(x))
         residual = x
         features = self.condition_feature_extractor(nchw(x_auxiliary_condition))
@@ -195,6 +210,7 @@ def build_models(
     num_stages: int = 4,
     num_channels: int = 3,
     num_auxiliary_condition_channels: int = 3,
+    num_condition_channels: Optional[int] = None,
     resnet_num_groups_for_normalization: int = 8,
 ) -> Tuple[FDNUNetEncoder, FDNUNetDecoder, FDNUNetAuxDecoder]:
     """The three modules with matched dims on the meta device: names and
@@ -207,6 +223,7 @@ def build_models(
             num_stages=num_stages,
             num_channels=num_channels,
             num_auxiliary_condition_channels=num_auxiliary_condition_channels,
+            num_condition_channels=num_condition_channels,
             num_groups=resnet_num_groups_for_normalization,
         )
         decoder = FDNUNetDecoder(
@@ -247,8 +264,10 @@ def predict(encoder, decoder, materials, conditions, geometry):
 
 class FDNUNet(nn.Module):
     """Monolithic FDN-UNet with per-stage attention: LinearAttention at
-    the outer stages, FullAttention at the innermost stage and the middle;
-    optional time embedding (the diffusion hook)."""
+    the outer stages, FullAttention at the innermost stage and the middle
+    (at every stage with use_full_attention); an optional self-condition
+    input (num_condition_channels, as in FDNUNetEncoder) and an optional
+    time embedding (the diffusion hooks)."""
 
     def __init__(
         self,
@@ -258,14 +277,17 @@ class FDNUNet(nn.Module):
         num_stages: int = 4,
         num_channels: int = 3,
         num_auxiliary_condition_channels: int = 3,
+        num_condition_channels: Optional[int] = None,
         num_groups: int = 8,
         attention_head_dim: int = 32,
         num_attention_heads: int = 4,
+        use_full_attention: bool = False,
         use_flash_attention: bool = False,
         use_time_embedding: bool = False,
     ):
         super().__init__()
         self.num_stages = num_stages
+        self.num_condition_channels = num_condition_channels
         self.use_time_embedding = use_time_embedding
         dims = _stage_dims(input_dim, initial_dim, num_stages)
         pairs = list(zip(dims[:-1], dims[1:]))
@@ -289,15 +311,18 @@ class FDNUNet(nn.Module):
         if use_time_embedding:
             self.TimeEmbeddingMLP_0 = TimeEmbeddingMLP(input_dim)
             time_dim = 4 * input_dim
-        self.initial_conv = conv3x3(num_channels, dims[0])
+        in_channels = num_channels * (1 if num_condition_channels is None else 2)
+        self.initial_conv = conv3x3(in_channels, dims[0])
         self.condition_feature_extractor = ConditionFeatureExtractor(
             num_auxiliary_condition_channels, dims
         )
-        # full attention at the innermost stage (down last, up first)
+        # full attention at the innermost stage (down last, up first), at
+        # every stage with use_full_attention
         for index, (in_dim, out_dim) in enumerate(pairs):
             self.add_module(f"down{index}_block1", block(in_dim, in_dim))
             self.add_module(f"down{index}_block2", block(in_dim, in_dim))
-            self.add_module(f"down{index}_attention", attn(index == num_stages - 1, in_dim))
+            self.add_module(f"down{index}_attention",
+                            attn(use_full_attention or index == num_stages - 1, in_dim))
             if index == num_stages - 1:
                 self.add_module(f"down{index}_conv", conv3x3(in_dim, out_dim))
             else:
@@ -308,7 +333,7 @@ class FDNUNet(nn.Module):
         for index, (in_dim, out_dim) in enumerate(reversed(pairs)):
             self.add_module(f"up{index}_block1", block(out_dim + in_dim, out_dim, False))
             self.add_module(f"up{index}_block2", block(out_dim + in_dim, out_dim, False))
-            self.add_module(f"up{index}_attention", attn(index == 0, out_dim))
+            self.add_module(f"up{index}_attention", attn(use_full_attention or index == 0, out_dim))
             if index == num_stages - 1:
                 self.add_module(f"up{index}_conv", conv3x3(out_dim, in_dim))
             else:
@@ -316,10 +341,14 @@ class FDNUNet(nn.Module):
         self.final_resnet = block(2 * dims[0], dims[0], False)
         self.final_conv = conv1x1(dims[0], final_dim)
 
-    def forward(self, x, x_auxiliary_condition, time=None):
-        """NHWC x (B, H, W, num_channels) and condition stack; `time` (B,)
-        is used when the model has a time embedding."""
+    def forward(self, x, x_auxiliary_condition, x_self_condition=None, time=None):
+        """NHWC x (B, H, W, num_channels) and condition stack;
+        `x_self_condition` (zeros when absent) where the model
+        self-conditions; `time` (B,) is used when the model has a time
+        embedding."""
         _check_divisible(x, self.num_stages)
+        if self.num_condition_channels is not None:
+            x = _self_condition(x, x_self_condition)
 
         time_embedding = None
         if self.use_time_embedding and time is not None:

@@ -36,7 +36,7 @@ def pair():
     params = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
     with torch.device("meta"):
         model = FDNUNet(**MODEL_KW)
-    td = diffusion.GaussianDiffusion(load_flax(model, params).eval(), timesteps=T)
+    td = diffusion.GaussianDiffusion(load_flax(model, params, device="cpu").eval(), timesteps=T)
     return jd, params, td
 
 

@@ -58,14 +58,28 @@ MODULES = [
     "fea_tpu_torch.train.optim",
     "fea_tpu_torch.train.trainer",
     "fea_tpu_torch.train.diffusion_trainer",
+    "fea_tpu_torch.utils.logs",
+    "fea_tpu_torch.metrics",
+    "fea_tpu_torch.metrics.accuracy",
+    "fea_tpu_torch.metrics.stats",
+    "fea_tpu_torch.apps",
+    "fea_tpu_torch.apps.specs",
+    "fea_tpu_torch.apps.runner",
+    "fea_tpu_torch.cli",
+    "fea_tpu_torch.__main__",
+]
+BLOCK = [
+    "import sys",
+    "sys.modules['jax'] = None",
+    "sys.modules['flax'] = None",
+    "sys.modules['fea_tpu'] = None",
 ]
 
 
 def test_imports_without_jax_or_flax():
     code = "\n".join([
-        "import importlib, sys",
-        "sys.modules['jax'] = None",
-        "sys.modules['flax'] = None",
+        *BLOCK,
+        "import importlib",
         *(f"importlib.import_module({m!r})" for m in MODULES),
         "assert not any(m.startswith(('jax', 'flax', 'fea_tpu.')) or m == 'fea_tpu'"
         " for m in sys.modules if sys.modules[m] is not None)",
@@ -83,3 +97,22 @@ def test_no_jax_import_in_source():
         str(p) for p in PACKAGE.rglob("*.py") if pattern.search(p.read_text())
     ]
     assert offenders == []
+
+
+def test_cli_help_without_jax():
+    """`python -m fea_tpu_torch --help` with jax, flax and fea_tpu blocked
+    exits 0 and lists the seven subcommands."""
+    code = "\n".join([
+        *BLOCK,
+        "import runpy",
+        "sys.argv = ['fea_tpu_torch', '--help']",
+        "runpy.run_module('fea_tpu_torch', run_name='__main__', alter_sys=True)",
+    ])
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=PACKAGE.parent,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    for command in ("generate", "train", "store", "train-diffusion", "sample", "accuracy", "app"):
+        assert command in proc.stdout
+    assert "--device" in proc.stdout

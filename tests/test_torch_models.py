@@ -58,7 +58,7 @@ def flax_apply(module, params, *args, **kw):
 def port(cls, params, *args, **kw):
     with torch.device("meta"):
         module = cls(*args, **kw)
-    return load_flax(module, params).eval()
+    return load_flax(module, params, device="cpu").eval()
 
 
 def nchw(a):
@@ -292,3 +292,82 @@ def test_fdnunet_time_embedding_flash():
         got = tm(torch.from_numpy(x), torch.from_numpy(cond), time=torch.from_numpy(t))
     assert got.shape == (2, S, S, 2)
     assert_close(got.numpy(), want, atol=5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("x_self_condition", [False, True])
+def test_encoder_self_condition(x_self_condition):
+    """FDNUNetEncoder with num_condition_channels (input_dim 16, 2 stages,
+    32 px): the initial conv takes x and the self-condition (zeros when
+    absent), 2 * num_channels inputs, and every output matches."""
+    S = 32
+    kw = dict(input_dim=16, num_stages=2, num_channels=2, num_auxiliary_condition_channels=3,
+              num_condition_channels=2)
+    jm = jfdnunet.FDNUNetEncoder(**kw)
+    x, cond = normal(40, 2, S, S, 2), normal(41, 2, S, S, 3)
+    extra = (normal(42, 2, S, S, 2),) if x_self_condition else ()
+    params = flax_init(jm, x, cond, *extra, seed=4)
+    assert params["initial_conv"]["kernel"].shape == (3, 3, 4, 16)
+    want = flax_apply(jm, params, x, cond, *extra)
+    tm = port(fdnunet.FDNUNetEncoder, params, **kw)
+    with torch.no_grad():
+        got = tm(*(torch.from_numpy(a) for a in (x, cond, *extra)))
+    for g, w in zip(jax.tree_util.tree_leaves((got[0], got[1], got[2])),
+                    jax.tree_util.tree_leaves(want)):
+        assert_close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("option", ["use_full_attention", "num_condition_channels"])
+def test_fdnunet_options(option):
+    """The monolithic FDNUNet (input_dim 16, 2 stages, 32 px, time
+    embedding) with full attention at every stage (fea_tpu's flash kernel
+    in interpret mode; the port's wrapper takes its plain version on CPU
+    tensors: 4 FullAttention sites instead of 2) or with the
+    self-conditioning input."""
+    S = 32
+    kw = dict(
+        input_dim=16, num_stages=2, num_channels=2, num_auxiliary_condition_channels=5,
+        use_time_embedding=True,
+    )
+    if option == "use_full_attention":
+        kw.update(use_full_attention=True, use_flash_attention=True)
+    else:
+        kw.update(num_condition_channels=2)
+    jm = jfdnunet.FDNUNet(**kw)
+    x, cond, self_cond = normal(50, 2, S, S, 2), normal(51, 2, S, S, 5), normal(52, 2, S, S, 2)
+    t = np.array([3.0, 6.0], np.float32)
+    # the same param tree, initialised through the math path (the flash
+    # kernel in interpret mode runs once per call, in the apply below)
+    params = flax_init(jfdnunet.FDNUNet(**{**kw, "use_flash_attention": False}), x, cond,
+                       time=t, seed=5)
+    tm = port(fdnunet.FDNUNet, params, **kw)
+    full = [n for n, m in tm.named_modules() if isinstance(m, attention.FullAttention)]
+    if option == "use_full_attention":
+        assert full == ["down0_attention", "down1_attention", "middle_attention",
+                        "up0_attention", "up1_attention"]
+    else:
+        assert full == ["down1_attention", "middle_attention", "up0_attention"]
+    cases = [None] if option == "use_full_attention" else [None, self_cond]
+    for sc in cases:
+        with jax.enable_x64(False):
+            want = jax.jit(lambda p, *a: jm.apply({"params": p}, *a))(params, x, cond, sc, t)
+        with torch.no_grad():
+            got = tm(torch.from_numpy(x), torch.from_numpy(cond),
+                     None if sc is None else torch.from_numpy(sc), time=torch.from_numpy(t))
+        assert_close(got.numpy(), want)
+
+
+def test_gaussian_diffusion_stores_self_condition():
+    """GaussianDiffusion(self_condition=) is stored, as fea_tpu stores it
+    (neither package's loss or sampler reads it)."""
+    from fea_tpu.models import diffusion as jdiffusion
+    from fea_tpu_torch.models import diffusion
+
+    kw = dict(input_dim=8, num_stages=2, num_channels=2, num_auxiliary_condition_channels=5,
+              use_time_embedding=True)
+    with torch.device("meta"):
+        tm = fdnunet.FDNUNet(**kw)
+    for flag in (False, True):
+        ours = diffusion.GaussianDiffusion(tm.to_empty(device="cpu"), timesteps=10, self_condition=flag)
+        theirs = jdiffusion.GaussianDiffusion(jfdnunet.FDNUNet(**kw), timesteps=10, self_condition=flag)
+        assert ours.self_condition is theirs.self_condition is flag
+    assert not diffusion.GaussianDiffusion(tm, timesteps=10).self_condition

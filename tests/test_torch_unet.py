@@ -57,7 +57,7 @@ def both(kw, calls):
     params = random_params(jm, *calls[0])
     with torch.device("meta"):
         tm = UNet(**kw)
-    tm = load_flax(tm, params).eval()
+    tm = load_flax(tm, params, device="cpu").eval()
     out = []
     for args in calls:
         with jax.enable_x64(False):
