@@ -9,8 +9,9 @@ the FEM core (`fem`: the single-mesh solve and the flat plate-group solve)
 over the CDT mesher (`mesh`, `geometry`, `materials`), the raster
 (`raster`), datagen, sequential and batched (`datagen`), the accuracy
 metrics (`metrics`), the application runner (`apps`), the training-log
-tools (`utils.logs`) and the CLI (`cli`, `python -m fea_tpu_torch`).
-Public model functions keep fea_tpu's NHWC layout; FEM arrays keep its
-element-minor, planar-dof layouts. Multi-GPU (fea_tpu's `parallel`) is
-still to port.
+tools (`utils.logs`), the CLI (`cli`, `python -m fea_tpu_torch`) and
+multi-GPU data parallelism over torch.distributed (`parallel`: the
+trainers data-parallel over a process group, datagen's chunks sharded over
+devices). Public model functions keep fea_tpu's NHWC layout; FEM arrays
+keep its element-minor, planar-dof layouts.
 """

@@ -3,27 +3,33 @@
 The port of fea_tpu/cli.py: the same seven subcommands (generate, train,
 store, train-diffusion, sample, accuracy, app) with the same options,
 defaults and choices, mapped onto the port's functions as fea_tpu maps
-them onto its own. It differs from fea_tpu's CLI in three ways:
-  * there is no cluster to join and no compilation cache to enable
-    (fea_tpu's `ensure_initialized()` and `_enable_compilation_cache()`):
-    the port runs in one process and compiles nothing ahead; its CUDA
-    kernels build at first use into fea_tpu_torch/_build;
+them onto its own. `main` joins the process group first when the
+environment names one (parallel/distributed.py; under torchrun: `torchrun
+--nproc_per_node N -m fea_tpu_torch train ...`), and `train` and
+`train-diffusion` then train data-parallel over it; `generate --batched
+--num_devices N` shards datagen's chunks over N devices in one process.
+It differs from fea_tpu's CLI in these ways:
+  * there is no compilation cache to enable (fea_tpu's
+    `_enable_compilation_cache()`): the port compiles nothing ahead; its
+    CUDA kernels build at first use into fea_tpu_torch/_build;
   * the platform is the global `--device` option, given before the
     subcommand, instead of fea_tpu's FEA_TPU_PLATFORM environment variable:
-    the CUDA device by default (the CLI raises where there is none), `cpu`
-    on request; the port reads no environment variable;
-  * `--num_devices` above 1 raises: multi-GPU is ROADMAP.md slice 7.
+    the CUDA device by default (the CLI raises where there is none), under
+    a process group the rank's own, `cpu` on request (a CPU group runs on
+    gloo); the arguments are parsed before the group is joined, since
+    `--device` picks the group's device;
+  * `generate --num_devices` above 1 without `--batched` raises, where
+    fea_tpu ignores it: the sequential path runs on one device.
 """
 
 import argparse
 import json
 import os
 
-from .utils.device import resolve_device
+import torch
 
-# fea_tpu's train command logs to wandb from its main process only
-# (`trainer.is_main`); the port runs one process, which is the main one
-IS_MAIN = True
+from .parallel.distributed import ensure_initialized, local_device, shutdown
+from .utils.device import resolve_device
 
 
 def _add_generate(sub):
@@ -45,8 +51,9 @@ def _add_generate(sub):
                         "as one flat chunk on the device)")
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--num_devices", type=int, default=None,
-                   help="one device only: more than 1 is ROADMAP.md slice 7 "
-                        "(multi-GPU) and raises")
+                   help="with --batched: shard each chunk's plates over this "
+                        "many devices, one solve worker each (cuda:0 .. "
+                        "cuda:N-1, or N shards on the CPU with --device cpu)")
     p.add_argument("--use_wandb", action="store_true")
     p.add_argument("--wandb_project", type=str, default=None)
     return p
@@ -55,10 +62,10 @@ def _add_generate(sub):
 def _cmd_generate(args, device):
     if not (args.save_displacement or args.save_strain or args.save_stress):
         raise ValueError("Must save at least one of displacement, strain, or stress.")
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError(
-            f"--num_devices {args.num_devices}: the port generates data on one "
-            "device; multi-GPU is ROADMAP.md slice 7"
+    if args.num_devices not in (None, 1) and not args.batched:
+        raise ValueError(
+            f"--num_devices {args.num_devices} shards the --batched path; the "
+            "sequential path runs on one device"
         )
 
     wandb_fn = None
@@ -224,7 +231,7 @@ def _cmd_train(args, device):
         trainer.load_checkpoint(args.checkpoint)
 
     wandb_fn = None
-    if args.use_wandb and IS_MAIN:
+    if args.use_wandb and trainer.is_main:
         import wandb
 
         if args.wandb_project is None:
@@ -469,13 +476,14 @@ COMMANDS = {
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="fea_tpu_torch",
-        description="FEA + surrogate framework on one CUDA device "
+        description="FEA + surrogate framework on CUDA devices "
                     "(the PyTorch port of fea_tpu).",
     )
     parser.add_argument(
         "--device", type=str, default=None,
-        help="torch device to run on (default: the CUDA device; raises "
-             "where there is none); `cpu` runs everything on the host",
+        help="torch device to run on (default: the CUDA device, under a "
+             "process group the rank's own; raises where there is none); "
+             "`cpu` runs everything on the host",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     for add, _ in COMMANDS.values():
@@ -484,11 +492,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Parse `argv` and run its command on `--device`; returns what the
-    command returns (the accuracy and app results, else None)."""
+    """Parse `argv`, join the process group the environment names (if
+    any), and run the command on `--device`; returns what the command
+    returns (the accuracy and app results, else None)."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
-    return COMMANDS[args.command][1](args, device)
+    owned = not torch.distributed.is_initialized()  # a caller's group stays
+    grouped = ensure_initialized(device=args.device)
+    try:
+        # under a group, the rank's own device (`--device cuda` included)
+        device = local_device() if grouped else resolve_device(args.device)
+        return COMMANDS[args.command][1](args, device)
+    finally:
+        if grouped and owned:
+            shutdown()
 
 
 if __name__ == "__main__":

@@ -10,16 +10,23 @@ whole chunk of conditions is one packed PCG solve.
 
 The host drives the CG loop (it reads the loop's condition once per block
 of bodies), so a plain call would hold the scheduler for the whole solve.
-`dispatch_plate_group` therefore hands the chunk to one solve worker thread
+`dispatch_plate_group` therefore hands the chunk to a solve worker thread
 with its own CUDA stream and returns a future at once; chunks run in the
 order they were dispatched, and the scheduler meshes, samples, rasterizes
 and writes PNGs meanwhile.
+
+A chunk is n contiguous blocks of plates, its shards (`n_devices`,
+fea_tpu's plate-axis sharding; n = 1 unless asked), each one
+`flat_group_body` on its own device, run by a solve worker of its own; the
+plates are independent, so the shards share no collective, as fea_tpu's
+shard_map of the same body does. The scheduler stays one process.
 """
 
 import os
+import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,7 +45,7 @@ from ..fem.problem import (
 )
 from ..fem.solver import CHECK_EVERY
 from ..mesh import Mesh
-from ..utils.device import resolve_device
+from ..utils.device import cuda_device, resolve_device
 from .pipeline import DATAGEN_ACCEPT_TOL, next_bucket
 
 # Hard cap on the banded half-bandwidth. The band buffer is
@@ -353,20 +360,21 @@ def chunk_inputs(payloads, pad_group_to: int = 0, x0s=None):
 
 
 def chunk_tables(solvers, host, m_real, device):
-    """The device half: the solvers' stacked tables and the uploaded
-    condition arrays, in `fem.flatgroup.chunk_system`'s argument order,
-    and the real-triangle counts (or None)."""
+    """The device half: the solvers' stacked tables (moved to `device` when
+    they live on another) and the uploaded condition arrays, in
+    `fem.flatgroup.chunk_system`'s argument order, and the real-triangle
+    counts (or None)."""
 
     def dev(a, dtype):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
+    def stacked(name):
+        return torch.stack([getattr(s, name) for s in solvers]).to(device)
+
     dtype = solvers[0].dtype
     tables = [
-        torch.stack([s.coords_dev for s in solvers]),
-        torch.stack([s.triangles_dev for s in solvers]),
-        torch.stack([s.slots_dev for s in solvers]),
-        torch.stack([s.agg_dev for s in solvers]),
-        torch.stack([s.arms_dev for s in solvers]),
+        stacked("coords_dev"), stacked("triangles_dev"), stacked("slots_dev"),
+        stacked("agg_dev"), stacked("arms_dev"),
         dev(host["members"], torch.int32),
     ] + [dev(host[name], dtype) for name in ("young", "poisson", "free", "loads", "x0")]
     return tables, None if m_real is None else dev(m_real, torch.int64)
@@ -395,6 +403,77 @@ def _solve_chunk(worker, device, ready, solvers, host, m_real, band_hb, kw, info
     return packed
 
 
+# Placement record of the most recent dispatch: the distinct
+# devices, the shards, the plates of the chunk and of each shard. Written
+# by dispatch_plate_group, asserted by parallel/scaling.py.
+LAST_DISPATCH: Dict[str, int] = {}
+
+
+def shard_devices(device, n_devices: int) -> List[torch.device]:
+    """The device of each of `n_devices` plate shards. `device` is a list of
+    n devices (repeats allowed: several shards can share one card), the
+    CPU (every shard on the CPU), a CUDA device (`cuda:k` .. `cuda:k+n-1`;
+    k is 0 without an index), or None (`cuda:0` .. `cuda:n-1`). Raises
+    where the devices are not there: no shard falls back to another
+    device."""
+    if n_devices < 1:
+        raise ValueError(f"n_devices={n_devices}")
+    if isinstance(device, (list, tuple)):
+        if len(device) != n_devices:
+            raise ValueError(f"{len(device)} devices named for {n_devices} shards")
+        return [torch.device(d) for d in device]
+    device = torch.device(device) if device is not None else cuda_device()
+    if device.type != "cuda":
+        return [device] * n_devices
+    first = device.index or 0
+    visible = torch.cuda.device_count()
+    if first + n_devices > visible:
+        raise ValueError(
+            f"{n_devices} shards from cuda:{first} need {first + n_devices} CUDA devices, "
+            f"{visible} visible; name the devices, e.g. device=['cuda:0'] * {n_devices}"
+        )
+    return [torch.device("cuda", first + k) for k in range(n_devices)]
+
+
+def _join_shards(futures: List[Future], device: torch.device, info: Optional[dict],
+                 infos: List) -> Future:
+    """One future for a chunk's shards: its result is their packed rows
+    joined in plate order on `device` (one shard's rows as they are);
+    `info` gets their summed `host_reads`, `setup_s` and `loop_s` and the
+    longest `seconds`."""
+    joined = Future()
+    left = [len(futures)]
+    lock = threading.Lock()
+
+    def one_done(_):
+        with lock:
+            left[0] -= 1
+            if left[0]:
+                return
+        try:
+            parts = [f.result() for f in futures]
+            if len(parts) == 1:
+                packed = parts[0]
+            else:
+                packed = torch.cat([p.to(device) for p in parts])
+                if device.type == "cuda":
+                    # the shards' rows were made on their workers' streams:
+                    # read them all before they can be freed
+                    torch.cuda.current_stream(device).synchronize()
+        except Exception as exc:  # a shard's error is the chunk's
+            joined.set_exception(exc)
+            return
+        if info is not None:
+            for key in ("host_reads", "setup_s", "loop_s"):
+                info[key] = sum(i[key] for i in infos)
+            info["seconds"] = max(i["seconds"] for i in infos)
+        joined.set_result(packed)
+
+    for f in futures:
+        f.add_done_callback(one_done)
+    return joined
+
+
 def dispatch_plate_group(
     payloads,
     tol=None,
@@ -403,15 +482,22 @@ def dispatch_plate_group(
     x0s=None,
     check_every: int = CHECK_EVERY,
     info: Optional[dict] = None,
-    worker: Optional[SolveWorker] = None,
+    workers: Optional[Sequence[SolveWorker]] = None,
+    devices: Optional[Sequence] = None,
 ) -> Future:
     """Asynchronous half of `solve_plate_group`: pad and stack a group of
     same-bucket plates' condition arrays on the host (`chunk_inputs`),
-    hand the chunk to `worker` (without one, to a worker of its own that
-    ends with this chunk), and return its future at once (the packed rows
-    on the device, once solved) — the host is free to prep the next chunk
-    while the solve runs. `info`, when given, receives the solve's
-    `host_reads`, `setup_s`, `loop_s` and `seconds` (worker wall time)."""
+    hand the chunk to the solve workers, and return its future at once
+    (the packed rows, once solved) — the host is free to prep the next
+    chunk while the solve runs. `info`, when given, receives the solve's
+    `host_reads`, `setup_s`, `loop_s` and `seconds` (worker wall time).
+
+    `devices` (n of them, repeats allowed; default the plates' own device)
+    shards the padded plates into n contiguous blocks, block k solved on
+    `devices[k]` by `workers[k]` (n workers, or None for workers of their
+    own that end with this chunk); the future's result is every shard's
+    rows in plate order on `devices[0]`, and `info` sums the shards'. The
+    plate count must divide by n."""
     _require_true_f32()
     solvers, host, m_real, band_hb = chunk_inputs(payloads, pad_group_to, x0s)
     solver0 = solvers[0]
@@ -427,17 +513,36 @@ def dispatch_plate_group(
     device = solver0.device
     ready = None
     if device.type == "cuda":
-        # the worker's stream starts after everything this thread queued
+        # the workers' streams start after everything this thread queued
         # so far (the solvers' tables)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(device))
-    args = (_solve_chunk, device, ready, solvers, host, m_real, band_hb, kw, info)
-    if worker is not None:
-        return worker.submit(*args)
-    worker = SolveWorker()
-    future = worker.submit(*args)
-    worker.close(wait=False)
-    return future
+
+    devices = [device] if devices is None else [torch.device(d) for d in devices]
+    n, plates = len(devices), len(solvers)
+    if plates % n:
+        raise ValueError(f"{plates} plates do not split over {n} shards: pad the group "
+                         f"to a multiple of {n} (pad_group_to)")
+    own = workers is None
+    workers = [SolveWorker() for _ in range(n)] if own else list(workers)
+    if len(workers) != n:
+        raise ValueError(f"{len(workers)} solve workers for {n} shards")
+    per = plates // n
+    LAST_DISPATCH.clear()
+    LAST_DISPATCH.update(n_devices=len(set(devices)), n_shards=n, rows=plates, shard_rows=per)
+    futures, infos = [], []
+    for k, (shard_device, shard_worker) in enumerate(zip(devices, workers)):
+        block = slice(k * per, (k + 1) * per)
+        shard_info = None if info is None else {}
+        infos.append(shard_info)
+        futures.append(shard_worker.submit(
+            _solve_chunk, shard_device, ready, solvers[block],
+            {name: a[block] for name, a in host.items()},
+            None if m_real is None else m_real[block], band_hb, kw, shard_info))
+    if own:
+        for w in workers:
+            w.close(wait=False)
+    return _join_shards(futures, devices[0], info, infos)
 
 
 def fetch_plate_group(token: Future, payloads):
@@ -460,15 +565,18 @@ def solve_plate_group(
     max_iters: Optional[int] = None,
     pad_group_to: int = 0,
     x0s=None,
+    devices: Optional[Sequence] = None,
 ):
     """Solve all conditions of a group of same-bucket plates as one chunk.
 
     payloads: list of (PlateSolver, [StaticProblem, ...]) with equal
     shape_key and equal condition counts. `pad_group_to` repeats the last
-    payload so every chunk has one fixed plate count. Returns
-    list-of-lists of SolveResult matching the (unpadded) input."""
+    payload so every chunk has one fixed plate count; `devices` shards the
+    chunk (see dispatch_plate_group). Returns list-of-lists of SolveResult
+    matching the (unpadded) input."""
     token = dispatch_plate_group(
-        payloads, tol=tol, max_iters=max_iters, pad_group_to=pad_group_to, x0s=x0s
+        payloads, tol=tol, max_iters=max_iters, pad_group_to=pad_group_to, x0s=x0s,
+        devices=devices,
     )
     return fetch_plate_group(token, payloads)
 
@@ -602,7 +710,12 @@ def generate_data_batched(
     `banded` picks the band operator for plates whose RCM bandwidth fits
     (fem/banded.py), else every chunk uses the incidence operator. Solves
     and nodal images run on `device`, the CUDA device unless named.
-    `n_devices` > 1 is ROADMAP.md slice 7 and raises.
+
+    `n_devices` > 1 shards every chunk's plate axis over that many devices
+    (`shard_devices`: `device` None means `cuda:0` .. `cuda:n-1`, the CPU
+    gives n CPU shards, a list names each shard's device), one solve
+    worker each; chunks then hold max(batch_size, n) plates rounded up to
+    a multiple of n. The plates' tables and images live on the first.
     """
     from collections import deque
     from concurrent.futures import TimeoutError as FutureTimeout
@@ -616,12 +729,8 @@ def generate_data_batched(
     from .pipeline import _write_condition
     from .writers import save_gray_png, verify_directory
 
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"n_devices={n_devices}: the port generates data on one device; "
-            "multi-GPU is ROADMAP.md slice 7"
-        )
-    device = resolve_device(device)
+    shards = shard_devices(device, n_devices or 1)
+    device = shards[0]
     _require_true_f32()
     verify_directory(data_dir)
     geometry_sampler = GeometrySampler(
@@ -638,7 +747,9 @@ def generate_data_batched(
     include_cell_fields = save_strain or save_stress or save_meshes
     buckets = RunningBuckets()
     stages = stage_timer if stage_timer is not None else StageTimer()
-    group_size = batch_size
+    # chunks must be a multiple of the shard count
+    group_size = max(batch_size, len(shards))
+    group_size += (-group_size) % len(shards)
 
     stats = {
         "plates": 0,
@@ -676,6 +787,10 @@ def generate_data_batched(
         "chunk_loop_s": 0.0,
         "host_reads": 0,
         "chunks": 0,
+        # (plate, condition, true relative residual, iterations) of every
+        # written condition; a condition the host's direct solve kept
+        # reports 0 and 0
+        "solved_conditions": [],
     }
     run_start = timer()
 
@@ -826,6 +941,8 @@ def generate_data_batched(
             for slot, ((condition, _), result) in enumerate(
                 zip(job.pairs, job.results)
             ):
+                stats["solved_conditions"].append((
+                    plate_number, slot + 1, float(result.residual_norm), int(result.iterations)))
                 condition_dir = os.path.join(plate_dir, str(slot + 1))
                 verify_directory(condition_dir)
                 _write_condition(
@@ -855,7 +972,7 @@ def generate_data_batched(
             save_gray_png(tmp_input, geometry_image(job.pixel_map))
             os.replace(tmp_input, os.path.join(plate_dir, "input.png"))
 
-    worker = SolveWorker()
+    workers = [SolveWorker() for _ in shards]
     ready: deque = deque()  # jobs with pending solves
     writes: deque = deque()  # completed jobs awaiting disk writes
     # dispatched chunks, oldest first: (t0, future, payloads, jobs, pendings, info)
@@ -932,7 +1049,8 @@ def generate_data_batched(
         with stages.stage("dispatch"):
             t0 = timer()
             future = dispatch_plate_group(
-                payloads, pad_group_to=group_size, x0s=x0s, info=info, worker=worker
+                payloads, pad_group_to=group_size, x0s=x0s, info=info, workers=workers,
+                devices=shards,
             )
             future.add_done_callback(lambda _f, info=info: info.setdefault("done", timer()))
         stats["lane_dispatches"] += sum(len(i) for i in pendings)
@@ -1112,7 +1230,8 @@ def generate_data_batched(
                 while in_system() + written < num_plates and len(ready) < group_size:
                     ready.append(prep_job())
     finally:
-        worker.close()
+        for w in workers:
+            w.close()
 
     # derived device-honest counters (see the stats comments above)
     stats["solves"] = stats["lane_dispatches"] - stats["continuations"]

@@ -1,11 +1,18 @@
 """Training loop for the conditional-diffusion mode, the port of
-fea_tpu/train/diffusion_trainer.py on one device.
+fea_tpu/train/diffusion_trainer.py.
 
 The FDN-UNet denoiser is conditioned on [forces, constraints, materials]
 (5 channels) and learns the displacement image distribution: one clipped
 Adam chain and an EMA every step, the EMA driving sampling. The time steps
 and the noise come from a torch.Generator seeded from the config. Flash
 attention is off, as in fea_tpu: its kernel has no backward.
+
+Data parallel under a process group, as the regression Trainer: the params
+are broadcast from rank 0, each rank feeds its row block of the batch, and
+t and the noise are drawn for the whole batch from the generator, which is
+seeded alike on every rank, so that W ranks compute the loss terms of the
+one-rank step; one all-reduce mean of the gradients and the loss comes
+before the clip. Rank 0 writes the checkpoints.
 """
 
 import logging
@@ -19,7 +26,8 @@ import torch
 
 from ..data.dataset import EpochSampler, FEADataset, collate
 from ..models.diffusion import GaussianDiffusion, make_diffusion_model
-from ..utils.device import cuda_device
+from ..parallel.distributed import is_main_process, sync_processes
+from ..parallel.mesh import all_reduce_mean, make_mesh, replicate
 from .ema import ema_update
 from .optim import AdamState, adam_init, adam_update, clip_by_global_norm
 
@@ -41,20 +49,21 @@ class DiffusionConfig:
     num_stages: int = 4
     results_folder: str = "results_diffusion"
     seed: int = 0
-    n_devices: Optional[int] = None  # more than one is ROADMAP.md slice 7
+    n_devices: Optional[int] = None  # as TrainerConfig.n_devices
     skip_dataset_size_check: bool = False
 
 
 class DiffusionTrainer:
     def __init__(self, config: DiffusionConfig, dataset=None, device=None):
-        """Runs on the CUDA device unless `device` says otherwise."""
-        if config.n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"n_devices={config.n_devices}: the port trains on one device; "
-                "multi-GPU is ROADMAP.md slice 7"
-            )
+        """Runs on the CUDA device unless `device` says otherwise: under a
+        process group, the rank's own device."""
         self.config = config
-        self.device = torch.device(device) if device is not None else cuda_device()
+        self.dp = make_mesh(config.n_devices, device)
+        self.device = self.dp.device
+        self.is_main = is_main_process()
+        if config.train_batch_size % self.dp.world_size:
+            raise ValueError(f"batch size {config.train_batch_size} must divide over "
+                             f"{self.dp.world_size} ranks")
         self.dataset = dataset if dataset is not None else FEADataset(
             config.dataset_folder,
             image_size=config.dataset_image_size,
@@ -79,6 +88,7 @@ class DiffusionTrainer:
         model = self.diffusion.model
         self.names = [n for n, _ in model.named_parameters()]
         self.params = list(model.parameters())
+        replicate(self.params)
         self.opt_state = adam_init(self.params)
         self.ema_params = [p.detach().clone() for p in self.params]
         self.step = 0
@@ -91,13 +101,29 @@ class DiffusionTrainer:
             [batch["forces"], batch["constraints"], batch["materials"]], axis=-1
         )
 
+    def _draws(self, x0):
+        """t and the noise for the whole batch, drawn from the generator as
+        GaussianDiffusion.loss draws them, and this rank's rows of each."""
+        batch = x0.shape[0] * self.dp.world_size
+        t = torch.randint(0, self.config.timesteps, (batch,), generator=self.generator,
+                          device=self.device)
+        noise = torch.randn((batch,) + tuple(x0.shape[1:]), generator=self.generator,
+                            device=self.device, dtype=x0.dtype)
+        rows = self.dp.rows(batch)
+        return t[rows], noise[rows]
+
     def _train_step(self, x0, condition, t=None, noise=None) -> torch.Tensor:
-        """One clipped Adam step and EMA update; t and the noise are drawn
-        from the trainer's generator unless given. Returns the loss as a
-        device scalar."""
+        """One clipped Adam step and EMA update on this rank's rows; t and
+        the noise are drawn from the trainer's generator unless both are
+        given (as this rank's rows). Returns the loss, the mean over the
+        ranks, as a device scalar."""
+        if t is None and noise is None:
+            t, noise = self._draws(x0)
         loss = self.diffusion.loss(x0, condition, self.generator, t=t, noise=noise)
-        grads = torch.autograd.grad(loss, self.params)
-        grads = clip_by_global_norm(list(grads), 1.0)
+        grads = list(torch.autograd.grad(loss, self.params))
+        loss = loss.detach()
+        all_reduce_mean(grads + [loss])
+        grads = clip_by_global_norm(grads, 1.0)
         new_params, self.opt_state = adam_update(
             self.params, grads, self.opt_state, self.config.train_learning_rate
         )
@@ -105,10 +131,11 @@ class DiffusionTrainer:
             torch._foreach_copy_(self.params, new_params)
         ema_update(self.ema_params, self.params, self.config.ema_decay)
         self.step += 1
-        return loss.detach()
+        return loss
 
     def _fetch(self, offset: int):
         idx = self.sampler.indices_at(offset, self.config.train_batch_size)
+        idx = idx[self.dp.rows(len(idx))]
         batch = collate([self.dataset[int(i)] for i in idx])
         to_device = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
         return to_device(batch["displacement"]), to_device(self.batch_condition(batch))
@@ -151,6 +178,13 @@ class DiffusionTrainer:
         return self.results_folder / f"model-{milestone}" / "state.pt"
 
     def save_checkpoint(self, milestone):
+        """Every rank joins the barriers; rank 0 writes."""
+        sync_processes()
+        if self.is_main:
+            self._write_checkpoint(milestone)
+        sync_processes()
+
+    def _write_checkpoint(self, milestone):
         path = self._ckpt_path(milestone)
         if path.parent.exists():
             shutil.rmtree(path.parent)
@@ -173,3 +207,5 @@ class DiffusionTrainer:
         self.ema_params = [state["ema_params"][n] for n in self.names]
         self.generator.set_state(state["generator"].cpu())
         self.step = int(state["step"])
+        opt = self.opt_state
+        replicate([*self.params, opt.count, *opt.mu, *opt.nu, *self.ema_params])

@@ -1,5 +1,5 @@
 """Training runtime for the FDN-UNet surrogate, the port of
-fea_tpu/train/trainer.py on one device.
+fea_tpu/train/trainer.py.
 
 One step is grad accumulation over micro-batches, per-module
 clip-by-global-norm then Adam (optax's, written out in optim.py), EMA, and
@@ -15,6 +15,15 @@ overlaps the step. Semantics kept from fea_tpu:
     resume from the newest checkpoint;
   * results/train-e{steps}-b{batch}-lr{lr}-{ts}.log logging.
 Checkpoints are torch files (model-<milestone>/state.pt).
+
+Data parallel under a process group of W ranks (parallel/, one process per
+GPU): every rank holds the same params (broadcast from rank 0 after
+construction and after a checkpoint loads), draws the same sample order and
+feeds its row block of every micro-batch, fea_tpu's process-major layout;
+one all-reduce mean of the flat gradients and the loss comes before the
+guard and the clip, so every rank takes the same update. Rank 0 alone
+writes logs, samples and checkpoints; every rank joins the barriers around
+a save.
 """
 
 import logging
@@ -44,7 +53,8 @@ from ..data.device_store import (
 )
 from ..data.store import StoredFEADataset
 from ..models.fdnunet import create_models
-from ..utils.device import cuda_device
+from ..parallel.distributed import is_main_process, sync_processes
+from ..parallel.mesh import all_reduce_mean, gather_rows, make_mesh, replicate
 from .ema import ema_update
 from .optim import AdamState, adam_init, adam_update, clip_by_global_norm, global_norm, select_
 
@@ -92,7 +102,8 @@ class TrainerConfig:
     # a condition-store directory (data/store.py) to train from instead of
     # the PNG folder
     dataset_store: Optional[str] = None
-    # multi-GPU is a later slice of the port (ROADMAP.md): raises when > 1
+    # ranks of the process group (parallel/): None = every rank of the group,
+    # or 1 without one; another number must equal the group's size
     n_devices: Optional[int] = None
     skip_dataset_size_check: bool = False
     inference_only: bool = False  # sampling: no effective-batch floor
@@ -145,21 +156,19 @@ def _check_config(config: TrainerConfig):
         raise ValueError(f"unknown loss_type {config.loss_type}")
     if config.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {list(COMPUTE_DTYPES)}")
-    if config.n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"n_devices={config.n_devices}: the port trains on one device; "
-            "multi-GPU is ROADMAP.md slice 7"
-        )
 
 
 class Trainer:
     def __init__(self, config: TrainerConfig, dataset=None, sample_dataset=None, device=None):
         """`dataset` / `sample_dataset` override the folder-backed FEADataset
         with any dataset of the same contract. Runs on the CUDA device
-        unless `device` says otherwise (the tests pass "cpu")."""
+        unless `device` says otherwise (the tests pass "cpu"): under a process
+        group, the rank's own device."""
         _check_config(config)
         self.config = config
-        self.device = torch.device(device) if device is not None else cuda_device()
+        self.dp = make_mesh(config.n_devices, device)
+        self.device = self.dp.device
+        self.is_main = is_main_process()
         self.compute_dtype = COMPUTE_DTYPES[config.compute_dtype]
 
         self.device_tables = None
@@ -221,6 +230,10 @@ class Trainer:
             raise ValueError("you should have at least 100 samples; 10k+ recommended")
         self.sampler = EpochSampler(len(self.dataset), seed=config.seed)
         self.sample_batch_size = config.sample_batch_size or config.train_batch_size
+        for name, size in (("train", config.train_batch_size), ("sample", self.sample_batch_size)):
+            if size % self.dp.world_size:
+                raise ValueError(
+                    f"{name} batch size {size} must divide over {self.dp.world_size} ranks")
 
         S = config.dataset_image_size
         generator = torch.Generator(device=self.device).manual_seed(config.seed)
@@ -236,6 +249,7 @@ class Trainer:
         )))
         self.names = {k: [n for n, _ in m.named_parameters()] for k, m in self.modules.items()}
         self.params = {k: list(m.parameters()) for k, m in self.modules.items()}
+        replicate([p for k in MODULES for p in self.params[k]])
         self.active = {
             "encoder": True,
             "decoder": not config.only_auxiliary,
@@ -257,12 +271,15 @@ class Trainer:
             str(config.train_learning_rate)[2:],
             datetime.now().strftime("%Y-%m-%d-%H-%M-%S"),
         )
-        logging.basicConfig(
-            filename=str(self.results_folder / log_name),
-            level=logging.INFO,
-            format="%(asctime)s %(message)s",
-            force=True,
-        )
+        if self.is_main:
+            logging.basicConfig(
+                filename=str(self.results_folder / log_name),
+                level=logging.INFO,
+                format="%(asctime)s %(message)s",
+                force=True,
+            )
+        else:
+            logging.basicConfig(level=logging.ERROR, force=True)  # no train-*.log
 
     def num_params(self) -> Dict[str, int]:
         return {k: sum(p.numel() for p in v) for k, v in self.params.items()}
@@ -385,6 +402,9 @@ class Trainer:
                 loss_sum = loss_sum + loss.detach()
         torch._foreach_div_(grads, accum)
         loss = loss_sum / accum
+        # under a process group: the mean over the ranks, before the guard
+        # and the clip, so that every rank takes the same decision and update
+        all_reduce_mean(grads + [loss])
         ok = torch.isfinite(loss) & torch.isfinite(global_norm(grads))
 
         start = 0
@@ -428,6 +448,10 @@ class Trainer:
         cfg = self.config
         accum, micro = cfg.num_gradient_accumulation_steps, cfg.train_batch_size
         idx = self.sampler.indices_at(global_offset, micro * accum)
+        # this rank's row block of every micro-batch
+        rows = self.dp.rows(micro)
+        idx = np.asarray(idx).reshape(accum, micro)[:, rows].reshape(-1)
+        micro = rows.stop - rows.start
         if self.device_tables is not None:
             # device-resident store: ship index vectors, assemble on the device
             batch = {k: torch.from_numpy(v) for k, v in index_arrays(self.dataset, idx).items()}
@@ -444,14 +468,15 @@ class Trainer:
         effective = len(self.dataset) / max(
             cfg.train_batch_size * cfg.num_gradient_accumulation_steps, 1
         )
-        print(f"Epoch Size: {effective} effective batches")
-        if effective:
-            print(f"Number of Effective Epochs: {cfg.num_train_steps / effective}")
+        if self.is_main:
+            print(f"Epoch Size: {effective} effective batches")
+            if effective:
+                print(f"Number of Effective Epochs: {cfg.num_train_steps / effective}")
 
         per_step = cfg.train_batch_size * cfg.num_gradient_accumulation_steps
         step = self.step
         pbar = None
-        if cfg.progress_bar:
+        if cfg.progress_bar and self.is_main:
             from tqdm import tqdm
 
             pbar = tqdm(initial=step, total=cfg.num_train_steps, desc="training")
@@ -535,7 +560,8 @@ class Trainer:
         if pbar is not None:
             pbar.close()
         self.save_checkpoint("final")
-        print("Training done!")
+        if self.is_main:
+            print("Training done!")
 
     # ------------------------------------------------------------ sampling
     @staticmethod
@@ -558,9 +584,13 @@ class Trainer:
     ):
         """Predict the sample set; write each prediction as x/y PNGs and
         the ranges as text under results/[milestone/]plate/condition, and
-        return (image file names, ranges, mean sample loss)."""
+        return (image file names, ranges, mean sample loss). Under a process
+        group each rank predicts its row block of every batch, the rows are
+        gathered, and rank 0 writes."""
         n = len(self.sample_dataset)
         bs = self.sample_batch_size
+        rows = self.dp.rows(bs)
+        write = save and self.is_main
         num_conditions = self.sample_dataset.conditions_per_plate_geometry
         num_steps = self.sample_dataset.num_steps
 
@@ -570,7 +600,7 @@ class Trainer:
         loss_count = 0
 
         starts = range(0, n, bs)
-        if progress_bar:
+        if progress_bar and self.is_main:
             from tqdm import tqdm
 
             starts = tqdm(starts, desc="sampling", total=(n + bs - 1) // bs)
@@ -578,15 +608,20 @@ class Trainer:
             idx = list(range(start, min(start + bs, n)))
             # static batch shape: pad by repeating the last sample
             pad = bs - len(idx)
-            samples = [self.sample_dataset[i] for i in idx + [idx[-1]] * pad]
+            samples = [self.sample_dataset[i] for i in (idx + [idx[-1]] * pad)[rows]]
             batch = {
                 k: self._to_device(torch.from_numpy(v)) for k, v in collate(samples).items()
             }
             image_pred, range_pred, loss_vec = self._eval_step(batch, use_ema)
+            if self.dp.distributed:
+                loss_vec = gather_rows(loss_vec)
+                if save:
+                    image_pred = None if image_pred is None else gather_rows(image_pred)
+                    range_pred = None if range_pred is None else tuple(map(gather_rows, range_pred))
             # mask the padded (repeated) tail out of the reported loss
             loss_sum += float(loss_vec[: len(idx)].sum())
             loss_count += len(idx)
-            if not save:
+            if not write:
                 continue
 
             image_pred = None if image_pred is None else image_pred.cpu().numpy()
@@ -619,7 +654,7 @@ class Trainer:
 
         total_loss = loss_sum / max(loss_count, 1)
         return (
-            image_filenames if (image_filenames and save) else None,
+            image_filenames if (image_filenames and write) else None,
             all_ranges if all_ranges else None,
             total_loss,
         )
@@ -644,6 +679,15 @@ class Trainer:
         }
 
     def save_checkpoint(self, milestone):
+        """Every rank joins the barrier before and after; rank 0 alone
+        rotates and writes (the reference's wait_for_everyone +
+        is_main_process)."""
+        sync_processes()
+        if self.is_main:
+            self._write_checkpoint(milestone)
+        sync_processes()
+
+    def _write_checkpoint(self, milestone):
         if milestone == "latest":
             # rotate latest -> latest-prev
             prev_dir = self._ckpt_dir("latest-prev")
@@ -687,7 +731,8 @@ class Trainer:
         latest / latest-prev / final) has the highest step, and starts
         fresh when there is none. A checkpoint with EMA weights loads into a
         trainer without EMA (the weights are dropped); a trainer with EMA
-        refuses a checkpoint without them."""
+        refuses a checkpoint without them. Every rank reads the file onto its
+        own device; rank 0's values are then broadcast."""
         if milestone == "auto":
             milestone = self._newest_milestone()
             if milestone is None:
@@ -696,7 +741,10 @@ class Trainer:
             print(f"auto-resume: milestone '{milestone}'")
         path = self._ckpt_dir(milestone)
         if not path.exists() and (self.results_folder / f"model-{milestone}.zip").exists():
-            self.unzip_checkpoint(milestone)
+            sync_processes()  # every rank has looked before rank 0 unzips
+            if self.is_main:
+                self.unzip_checkpoint(milestone)
+            sync_processes()
         state = torch.load(path / "state.pt", map_location=self.device, weights_only=True)
         has_ema = state["ema_params"] is not None
         if self.ema_params is not None and not has_ema:
@@ -716,6 +764,17 @@ class Trainer:
                 self.ema_params[key] = [ema[name] for name in self.names[key]]
         self.step = int(state["step"])
         self.lowest_sample_loss = float(state["lowest_sample_loss"])
+        replicate(self._state_tensors())
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """Params, Adam moments and counts, and EMA, in a fixed order."""
+        out = []
+        for key in MODULES:
+            state = self.opt_states[key]
+            out += [*self.params[key], state.count, *state.mu, *state.nu]
+            if self.ema_params is not None:
+                out += self.ema_params[key]
+        return out
 
     def _newest_milestone(self) -> Optional[str]:
         best = None

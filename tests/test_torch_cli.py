@@ -193,8 +193,19 @@ def test_cli_needs_a_device(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("batched", [False, True])
-def test_more_than_one_device_raises(tmp_path, batched):
-    argv = ["--device", "cpu", "generate", "--num_devices", "2", "--save_displacement",
-            "--data_dir", str(tmp_path)] + (["--batched"] if batched else [])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        cli.main(argv)
+def test_more_than_one_device_raises(tmp_path, batched, monkeypatch):
+    """`generate --num_devices 2` raises where it cannot be met: the
+    sequential path runs on one device, and the batched path asked for two
+    cards where one is visible (tests/test_torch_datagen_dp.py runs it on
+    two CPU shards)."""
+    argv = ["generate", "--num_devices", "2", "--save_displacement", "--data_dir",
+            str(tmp_path / "data")]
+    if batched:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="2 shards from cuda:0 need 2 CUDA devices, 1 visible"):
+            cli.main(argv + ["--batched"])
+    else:
+        with pytest.raises(ValueError, match="shards the --batched path"):
+            cli.main(["--device", "cpu"] + argv)
+    assert not (tmp_path / "data").exists()

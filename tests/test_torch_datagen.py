@@ -243,7 +243,7 @@ def test_in_memory_dataset_matches_fea_tpu():
 
 def test_entry_points_need_a_card_or_the_cpu_named(tmp_path):
     """Without CUDA each entry point raises unless given device="cpu";
-    more than one device is a later slice."""
+    shards on devices that are not named right raise too."""
     from fea_tpu_torch.data import InMemoryFEADataset
 
     mesh = mesher.triangulate(SQUARE, mesh_size=0.3)
@@ -257,7 +257,8 @@ def test_entry_points_need_a_card_or_the_cpu_named(tmp_path):
                          np.zeros(mesh.num_nodes))):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        batched.generate_data_batched(data_dir=str(tmp_path / "c"), n_devices=2, device="cpu", **CONFIG)
+    with pytest.raises(ValueError, match="3 devices named for 2 shards"):
+        batched.generate_data_batched(data_dir=str(tmp_path / "c"), n_devices=2,
+                                      device=["cpu"] * 3, **CONFIG)
     with pytest.raises(ValueError, match="float32 or float64"):
         batched.PlateSolver(mesh, 2, dtype=torch.bfloat16, device="cpu")

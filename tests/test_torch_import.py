@@ -67,6 +67,11 @@ MODULES = [
     "fea_tpu_torch.apps.runner",
     "fea_tpu_torch.cli",
     "fea_tpu_torch.__main__",
+    "fea_tpu_torch.parallel",
+    "fea_tpu_torch.parallel.distributed",
+    "fea_tpu_torch.parallel.mesh",
+    "fea_tpu_torch.parallel.launch",
+    "fea_tpu_torch.parallel.scaling",
 ]
 BLOCK = [
     "import sys",

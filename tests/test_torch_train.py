@@ -358,7 +358,8 @@ def test_train_loop_aborts_on_a_streak_of_skipped_steps(folder, tmp_path, monkey
 
 
 def test_later_slices_raise(folder, tmp_path):
-    """Multi-GPU is the slice still to come; the condition store and the
-    device-resident store train (tests/test_torch_store.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md slice 7"):
+    """Every slice is ported (multi-GPU: tests/test_torch_train_dp.py); two
+    devices asked of a process in no process group raise and say how to
+    launch the ranks, where no silent single device may stand in."""
+    with pytest.raises(ValueError, match="no process group.*torchrun --nproc_per_node 2"):
         port_trainer(folder, tmp_path, "later", n_devices=2)
