@@ -89,7 +89,8 @@ Phase 12: the diffusion denoiser at full width with full attention at
          launches (one per FullAttention site) and 9 GroupNorm+SiLU; its
          stage-0 flash call (BH 8, Nq 65,536, Nk 65,540, D 32) against the
          plain version on its first 1,024 query rows over every key; device
-         ms of the forward and of the stage-0 call beside its bound.
+         ms of the forward and of the stage-0 call beside its bound and
+         scaled_dot_product_attention's memory-efficient backend.
 Phase 13: the pipeline end to end through the port's CLI
          (`fea_tpu_torch.cli.main` in this process, and `python -m
          fea_tpu_torch --help` once as a subprocess): generate --batched
@@ -125,6 +126,20 @@ Phase 14: data parallelism (fea_tpu_torch.parallel). (a) The phase 5
          chunk of its own plates. (e)
          measure_sharding_efficiency(2) on this card. (f) Two NCCL ranks on
          two cards, where there are two; else a line says it did not run.
+Phase 15: band-block Jacobi, the solver variant the port takes from
+         fea_tpu's switches, on phase 9's chunk: the default and blocks of
+         128 and 256. Per variant: iterations over the lanes (sum, median,
+         max), loop bodies and host reads, set-up and loop seconds, ms and
+         device kernels per body, peak memory, and every converged lane
+         within 1e-3 of the host's f64 direct solve (raises otherwise, or
+         where no lane converges). generate_data_batched at bench.py's
+         config, 16 plates from phase 10's timed seed, the default and
+         blocks of 128 and 256 in turns (twice each): plates per hour, the
+         solve counters, and each variant's tree against the default's:
+         the same files and sampled inputs, and on the conditions that
+         ended under a residual of 1e-4 in both, PNGs within 1 gray level
+         and ranges within 1e-3 of their span (raises otherwise).
+         Measurements: no variant becomes a default.
 
 Kernel times are device times: CUDA events around calls that the host
 queued behind a device-side wait, each function timed in turns.
@@ -135,8 +150,9 @@ checkout's fea_tpu_torch/_build.
 
 The stores (about 7.6 GB at the production count), the checkpoints and
 the datagen trees are written under results/chip_smoke/ and deleted at
-the end. `--only 9,10,11` runs only those phases (any of 1 and 9-14; no
-result line).
+the end. `--only 9,10,11` runs only those phases (any of 1 and 9-15; the
+card's name and power limit after them, no result line; phase 15 prints
+phase 10's plates per hour where 10 runs before it).
 
 Prints the card, a JSON line of the kernels, and as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -163,6 +179,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 SEED = 0
 SAMPLER_STEPS = 25
@@ -1552,7 +1569,15 @@ def phase_full_attention(device, earlier):
     want = flash_attention_reference(q[:, :STAGE0_ROWS], k, v)
     got = recorded["out"][:, :STAGE0_ROWS]
     err_stage0 = max_abs_err(got, want)
-    fns = {"kernel": lambda: flash_attention(q, k, v)}
+
+    def library():
+        # the memory-efficient backend: O(N D) memory (the math backend's
+        # scores would take 137 GB); its 4-D layout is (1, BH, N, D)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q[None], k[None], v[None])[0]
+
+    err_library = max_abs_err(library()[:, :STAGE0_ROWS], want)
+    fns = {"kernel": lambda: flash_attention(q, k, v), "library": library}
     if earlier is not None:
         fns["earlier"] = lambda: earlier.flash_attention(q, k, v)
         err_earlier = max_abs_err(fns["earlier"]()[:, :STAGE0_ROWS], want)
@@ -1565,6 +1590,7 @@ def phase_full_attention(device, earlier):
     forward_ms = cuda_ms(forward, 3)
     stage0 = in_turns(fns, 5)
     stage0_ms = stage0["kernel"]
+    library_ms = stage0["library"]
     ops = 4 * bh * nq * nk * d
     bound, bound_by = bound_ms(4 * (2 * bh * nq * d + 2 * bh * nk * d), ops, TF32_TENSOR_FLOPS)
     log(f"phase 12: {IMAGE} px, batch {FULL_ATTENTION_BATCH}: launches (flash, GroupNorm+SiLU "
@@ -1574,10 +1600,12 @@ def phase_full_attention(device, earlier):
         f"{bound:.4f} ms ({bound_by}: {ops / 1e12:.3f} TFLOP at the TF32 tensor-core peak), "
         f"the 3xTF32 floor {3 * ops / TF32_TENSOR_FLOPS * 1e3:.4f} ms; {stage0_ms / bound:.2f}x "
         f"the bound" + (f"; earlier kernel {stage0['earlier']:.4f} ms" if earlier else ""))
+    log(f"phase 12: stage-0 call, scaled_dot_product_attention (EFFICIENT_ATTENTION): "
+        f"{library_ms:.4f} ms; max abs err vs plain on {STAGE0_ROWS} query rows {err_library:.3e}")
     del model, q, k, v
     torch.cuda.empty_cache()
     return dict(launches_full_attention=launches[0], max_abs_err_stage0=err_stage0,
-                ms_stage0=stage0_ms, bound_ms_stage0=bound,
+                ms_stage0=stage0_ms, bound_ms_stage0=bound, library_ms_stage0=library_ms,
                 **({"earlier_ms_stage0": stage0["earlier"]} if earlier else {}))
 
 
@@ -2157,12 +2185,217 @@ def phase_data_parallel(device, results):
     return fwd, bwd
 
 
+# phase 15: band-block Jacobi on phase 9's chunk and in the datagen
+# scheduler: (name, dispatch keywords)
+VARIANTS = (
+    ("default", {}),
+    ("band_block 128", {"band_block": 128}),
+    ("band_block 256", {"band_block": 256}),
+)
+VARIANT_TREE_REL = 1e-3  # ranges of a variant's tree vs the default's, of their span
+
+
+def align_plates(tree, reference):
+    """Renumber `tree`'s plate folders to the numbers the same plates have
+    in `reference`. The scheduler numbers plates in the order they finish,
+    which a solver variant changes; a plate is known by its input.png (the
+    sampled geometry). Returns {old number: new number}, empty (nothing
+    renamed) unless the two trees hold the same plates."""
+    def plates(root):
+        return {Path(root, d, "input.png").read_bytes(): d for d in os.listdir(root)
+                if Path(root, d, "input.png").is_file()}
+
+    ours, theirs = plates(tree), plates(reference)
+    mapping = {d: theirs[k] for k, d in ours.items() if k in theirs}
+    if len(mapping) != len(ours) or len(ours) != len(theirs):
+        return {}
+    for old in mapping:
+        os.rename(Path(tree, old), Path(tree, old + ".renumbered"))
+    for old, new in mapping.items():
+        os.rename(Path(tree, old + ".renumbered"), Path(tree, new))
+    return mapping
+
+
+def variant_kernels(device, payloads, kw):
+    """Device kernels per loop body of one variant's chunk solve, as phase 9
+    counts them: the whole solve on this thread (where the profiler
+    records) less its set-up, over the loop bodies it queued. The solve's
+    keywords are dispatch_plate_group's own (batched.chunk_keywords)."""
+    from fea_tpu_torch.datagen.batched import chunk_inputs, chunk_keywords, chunk_tables
+    from fea_tpu_torch.fem.flatgroup import chunk_system, flat_group_body
+    from fea_tpu_torch.fem.solver import CHECK_EVERY
+
+    solvers, host, m_real, band_hb = chunk_inputs(payloads)
+    body_kw = chunk_keywords(solvers, band_hb, **kw)
+    tables, m_real_p = chunk_tables(solvers, host, m_real, device)
+    setup_kw = {k: body_kw[k] for k in ("n_coarse", "band_hb", "band_block")}
+    k_setup = device_kernels(lambda: chunk_system(*tables, m_real_p=m_real_p, **setup_kw))
+    info = {}
+    k_total = device_kernels(lambda: flat_group_body(*tables, m_real_p=m_real_p, info=info,
+                                                     **body_kw))
+    bodies = CHECK_EVERY * (info["host_reads"] - solvers[0].restarts)
+    return (k_total - k_setup) / max(bodies, 1)
+
+
+def phase_variants(device, results, default_plates_per_hour):
+    """Phase 15: band-block Jacobi on phase 9's chunk against the host's
+    f64 direct solve, and generate_data_batched with it against the
+    default's tree of the same seed."""
+    from fea_tpu_torch.datagen import generate_data_batched
+    from fea_tpu_torch.datagen.batched import dispatch_plate_group, unpack_plate_group
+    from fea_tpu_torch.fem import direct_solve
+    from fea_tpu_torch.fem.solver import CHECK_EVERY
+
+    t0 = time.perf_counter()
+    chunk = chunk_payloads(device, banded=True)
+    s0 = chunk[0][0]
+    P, C = len(chunk), len(chunk[0][1])
+    direct = [[direct_solve(problem).displacements[-1] for problem in problems]
+              for _, problems in chunk]
+    log(f"phase 15: phase 9's chunk, {P} plates x {C} conditions, band hb {s0.band_hb}, "
+        f"n_coarse {s0.n_coarse}; solvers and the {P * C} direct solves in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, kw in VARIANTS:  # warm-up: each variant's solver kernels
+        dispatch_plate_group(chunk, **kw).result()
+    # timed in turns (in order, reversed, in order): a body's time is the
+    # host's and moves from run to run
+    runs = {name: [] for name, _ in VARIANTS}
+    first = {}
+    for name, kw in VARIANTS + VARIANTS[::-1] + VARIANTS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by the earlier phases and this one's tables
+        info = {}
+        t1 = time.perf_counter()
+        rows = dispatch_plate_group(chunk, info=info, **kw).result()
+        info["wall"] = time.perf_counter() - t1
+        info["peak"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        info["same"] = torch.equal(rows, first.setdefault(name, rows))
+        runs[name].append(info)
+    failures = []
+    for name, kw in VARIANTS:
+        res = unpack_plate_group(first[name].cpu().numpy(), chunk)
+        iters = [int(r.iterations) for plate in res for r in plate]
+        worst, converged = 0.0, 0
+        for p, plate in enumerate(res):
+            for c, r in enumerate(plate):
+                if r.success:
+                    converged += 1
+                    want = direct[p][c]
+                    scale = max(float(np.abs(want).max()), 1e-30)
+                    worst = max(worst, float(np.abs(r.displacements[-1] - want).max()) / scale)
+        reads = runs[name][0]["host_reads"]
+        bodies = CHECK_EVERY * (reads - s0.restarts)
+        per_body = variant_kernels(device, chunk, kw)
+
+        def spread(key, scale=1.0):
+            v = sorted(run[key] * scale for run in runs[name])
+            return f"{v[len(v) // 2]:.4f} [{v[0]:.4f}, {v[-1]:.4f}]"
+
+        log(f"phase 15: {name}: iterations over lanes sum {sum(iters)}, median "
+            f"{float(np.median(iters)):.1f}, max {max(iters)}; {bodies} loop bodies, {reads} host "
+            f"reads; over {len(runs[name])} runs, median [min, max]: chunk ms {spread('wall', 1e3)}, "
+            f"setup_s {spread('setup_s')}, loop_s {spread('loop_s')}, ms per body "
+            f"{spread('loop_s', 1e3 / max(bodies, 1))}; {per_body:.1f} kernels per body; the "
+            f"solve's peak device memory {max(run['peak'] for run in runs[name]):.3f} GB above "
+            f"what was held before it; repeats bit for bit: "
+            f"{all(run['same'] for run in runs[name])}; {converged} of {P * C} lanes converged, the "
+            f"worst within {worst:.3e} of the host's f64 direct solve (tolerance {CHUNK_DIRECT_REL})")
+        if converged == 0 or worst > CHUNK_DIRECT_REL:
+            failures.append(name)
+    del first
+    if failures:
+        raise AssertionError(f"phase 15: no converged lane, or one off the direct solve: {failures}")
+    w = 256
+    factor_gb = C * 2 * P * s0.node_bucket * w * 4 / 1e9
+    log(f"phase 15: band_block {w}: the factor's f32 copy is held for the loop, {factor_gb:.3f} GB "
+        f"({C * 2 * P * s0.node_bucket // w} blocks of {w}x{w}); the bf16 factor "
+        f"({factor_gb / 2:.3f} GB) is freed after the set-up")
+
+    # datagen: every variant warmed up as phase 10 warms the default (its
+    # first chunks build the band-block factor at new shapes), then from
+    # phase 10's timed seed in turns (in order, then reversed); the first
+    # run of each keeps its tree
+    common = dict(DATAGEN, device=device, num_plates=DATAGEN_TIMED_PLATES, seed=1234)
+    for name, kw in VARIANTS:
+        folder = results / ("variant_warm_" + name.replace(" ", "_"))
+        generate_data_batched(data_dir=str(folder), **dict(common, num_plates=DATAGEN_WARMUP_PLATES,
+                                                           seed=7), **kw)
+        shutil.rmtree(folder, ignore_errors=True)
+    rates = {name: [] for name, _ in VARIANTS}
+    solved, trees = {}, {}
+    for turn, (name, kw) in enumerate(VARIANTS + VARIANTS[::-1]):
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        folder = results / ("variant_" + name.replace(" ", "_") + f"_{turn}")
+        t1 = time.perf_counter()
+        stats = generate_data_batched(data_dir=str(folder), **common, **kw)
+        wall = time.perf_counter() - t1
+        rates[name].append(DATAGEN_TIMED_PLATES / wall * 3600)
+        for plate in range(1, DATAGEN_TIMED_PLATES + 1):
+            plate_files_ok(str(folder / str(plate)), DATAGEN["conditions_per_plate"],
+                           DATAGEN["num_steps_per_condition"])
+        bodies = CHECK_EVERY * (stats["host_reads"] - stats["chunks"])
+        iters = stats["converged_iters"]
+        log(f"phase 15: generate_data_batched with {name}, {DATAGEN_TIMED_PLATES} plates "
+            f"(seed 1234, as phase 10's timed run), turn {turn}: {wall:.1f} s, "
+            f"{rates[name][-1]:.1f} plates per hour; {stats['solves']} solves in "
+            f"{stats['chunks']} chunks, {stats['cg_failures']} CG failures, "
+            f"{stats['direct_fallbacks']} direct fallbacks, {stats['continuations']} "
+            f"continuations; converged lanes' iterations median "
+            f"{float(np.median(iters)) if iters else float('nan'):.0f}, max {max(iters, default=0)}; "
+            f"{stats['chunk_loop_s'] * 1e3 / max(bodies, 1):.3f} ms per loop body; peak device "
+            f"memory {(torch.cuda.max_memory_allocated() - held) / 1e9:.2f} GB above the "
+            f"{held / 1e9:.2f} GB held before the run")
+        if name in trees:
+            shutil.rmtree(folder, ignore_errors=True)
+        else:
+            trees[name] = folder
+            solved[name] = {(str(p), str(c)): (r, i) for p, c, r, i in stats["solved_conditions"]}
+    log(f"phase 15: datagen plates per hour, runs in turn order: "
+        + "; ".join(f"{name} {', '.join(f'{v:.1f}' for v in rates[name])}" for name, _ in VARIANTS)
+        + f" (phase 10, default: {default_plates_per_hour:.1f})")
+    # each variant's tree against the default's: a lane's result moves with
+    # its preconditioner within the CG tolerance, so the conditions held are
+    # those that ended under a residual of 1e-4 in both (as phase 14d holds
+    # its two runs), where both are within 1e-3 of the direct solve
+    bad = []
+    for name, _ in VARIANTS[1:]:
+        mapping = align_plates(trees[name], trees["default"])
+        renumbered = sum(old != new for old, new in mapping.items())
+        same_files, inputs_equal, diffs, identical = datagen_tree_diffs(trees[name], trees["default"])
+        pair = ({(mapping.get(p, p), c): v for (p, c), v in solved[name].items()}, solved["default"])
+        tight = [k for k in diffs if k in pair[0] and k in pair[1]
+                 and max(pair[0][k][0], pair[1][k][0]) <= CHUNK_OPERATORS_RESIDUAL]
+        worst_png = max((diffs[k][0] for k in tight), default=0)
+        worst_rng = max((diffs[k][1] for k in tight), default=0.0)
+        log(f"phase 15: the {name} tree against the default's ({len(mapping)} plates matched by "
+            f"input.png, {renumbered} finished in another order): same files {same_files}, the "
+            f"sampled inputs equal {inputs_equal}, byte for byte equal {identical}; {len(tight)} "
+            f"of {len(diffs)} conditions ended under a residual of {CHUNK_OPERATORS_RESIDUAL} in "
+            f"both: PNGs within {worst_png} gray levels, ranges within {worst_rng} of their span "
+            f"(tolerances 1 and {VARIANT_TREE_REL})")
+        loose = sorted(set(diffs) - set(tight))
+        log(f"phase 15: {name}: the other {len(loose)} conditions (a residual above "
+            f"{CHUNK_OPERATORS_RESIDUAL} in either run, or the direct lane): PNGs within "
+            f"{max((diffs[k][0] for k in loose), default=0)} gray levels, ranges within "
+            f"{max((diffs[k][1] for k in loose), default=0.0)} of their span")
+        if not (mapping and same_files and inputs_equal and tight) or worst_png > 1 or \
+                worst_rng > VARIANT_TREE_REL:
+            bad.append(name)
+    for folder in trees.values():
+        shutil.rmtree(folder, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"phase 15: the datagen tree differs from the default's: {bad}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", metavar="TREE",
                         help="also time the kernels of this checkout, as `earlier`")
     parser.add_argument("--only", metavar="PHASES",
-                        help="run only these of the phases 1 and 9-14 (comma-separated); "
+                        help="run only these of the phases 1 and 9-15 (comma-separated); "
                              "such a partial run prints no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2196,7 +2429,7 @@ def main():
     results = Path(__file__).resolve().parent / "results" / "chip_smoke"
     shutil.rmtree(results, ignore_errors=True)
     if args.only:
-        chunk_ms_body = float("nan")
+        chunk_ms_body = plates_per_hour = float("nan")
         try:
             for n in sorted(int(v) for v in args.only.split(",")):
                 t0 = time.perf_counter()
@@ -2205,7 +2438,7 @@ def main():
                 elif n == 9:
                     chunk_ms_body = phase_chunk(device)
                 elif n == 10:
-                    phase_datagen(device, results, chunk_ms_body)
+                    plates_per_hour = phase_datagen(device, results, chunk_ms_body)
                 elif n == 11:
                     phase_inmemory_train(device, results)
                 elif n == 12:
@@ -2214,9 +2447,12 @@ def main():
                     phase_cli(device, results)
                 elif n == 14:
                     phase_data_parallel(device, results)
+                elif n == 15:
+                    phase_variants(device, results, plates_per_hour)
                 else:
-                    raise SystemExit(f"--only takes the phases 1 and 9 to 14, not {n}")
+                    raise SystemExit(f"--only takes the phases 1 and 9 to 15, not {n}")
                 log(f"phase {n} done in {time.perf_counter() - t0:.1f} s")
+            log(nvidia_smi())
         finally:
             shutil.rmtree(results, ignore_errors=True)
         return 0
@@ -2253,7 +2489,7 @@ def main():
         chunk_ms_body = phase_chunk(device)
         log(f"phase 9 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        phase_datagen(device, results, chunk_ms_body)
+        plates_per_hour = phase_datagen(device, results, chunk_ms_body)
         log(f"phase 10 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         phase_inmemory_train(device, results)
@@ -2267,6 +2503,9 @@ def main():
         t0 = time.perf_counter()
         dp_fwd, dp_bwd = phase_data_parallel(device, results)
         log(f"phase 14 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_variants(device, results, plates_per_hour)
+        log(f"phase 15 done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)
 

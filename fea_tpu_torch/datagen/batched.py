@@ -380,15 +380,33 @@ def chunk_tables(solvers, host, m_real, device):
     return tables, None if m_real is None else dev(m_real, torch.int64)
 
 
-def _solve_chunk(worker, device, ready, solvers, host, m_real, band_hb, kw, info):
+def chunk_keywords(solvers, band_hb: int, tol=None, max_iters: Optional[int] = None,
+                   check_every: int = CHECK_EVERY, band_block: int = 0) -> dict:
+    """The keywords of a chunk's `flat_group_body`, from its first solver
+    (`tol` and `max_iters` where not given) and the switches."""
+    solver0 = solvers[0]
+    return dict(
+        n_coarse=solver0.n_coarse,
+        tol=solver0.tol if tol is None else tol,
+        max_iters=solver0.max_iters if max_iters is None else max_iters,
+        accept_tol=solver0.accept_tol,
+        restarts=solver0.restarts,
+        include_cell_fields=solver0.include_cell_fields,
+        check_every=check_every,
+        band_hb=band_hb,
+        band_block=band_block,
+    )
+
+
+def _solve_chunk(worker, device, ready, solvers, host, m_real, kw, info):
     """The worker's half of a dispatch: upload, stack and run the flat
-    chunk solve. Returns the packed (P, C, K) rows on the device,
-    finished."""
+    chunk solve with the keywords `kw` (`chunk_keywords`). Returns the
+    packed (P, C, K) rows on the device, finished."""
     t0 = time.perf_counter()
 
     def run():
         tables, m_real_p = chunk_tables(solvers, host, m_real, device)
-        return flat_group_body(*tables, m_real_p=m_real_p, band_hb=band_hb, info=info, **kw)
+        return flat_group_body(*tables, m_real_p=m_real_p, info=info, **kw)
 
     if device.type == "cuda":
         stream = worker.stream(device)
@@ -484,6 +502,7 @@ def dispatch_plate_group(
     info: Optional[dict] = None,
     workers: Optional[Sequence[SolveWorker]] = None,
     devices: Optional[Sequence] = None,
+    band_block: int = 0,
 ) -> Future:
     """Asynchronous half of `solve_plate_group`: pad and stack a group of
     same-bucket plates' condition arrays on the host (`chunk_inputs`),
@@ -491,6 +510,10 @@ def dispatch_plate_group(
     (the packed rows, once solved) — the host is free to prep the next
     chunk while the solve runs. `info`, when given, receives the solve's
     `host_reads`, `setup_s`, `loop_s` and `seconds` (worker wall time).
+
+    With the band, `band_block` > 0 takes band-block Jacobi with blocks of
+    that many dofs for the smoother (fem/flatgroup.chunk_system); 0, the
+    default as in fea_tpu, the per-node 2x2 blocks.
 
     `devices` (n of them, repeats allowed; default the plates' own device)
     shards the padded plates into n contiguous blocks, block k solved on
@@ -500,17 +523,8 @@ def dispatch_plate_group(
     plate count must divide by n."""
     _require_true_f32()
     solvers, host, m_real, band_hb = chunk_inputs(payloads, pad_group_to, x0s)
-    solver0 = solvers[0]
-    kw = dict(
-        n_coarse=solver0.n_coarse,
-        tol=solver0.tol if tol is None else tol,
-        max_iters=solver0.max_iters if max_iters is None else max_iters,
-        accept_tol=solver0.accept_tol,
-        restarts=solver0.restarts,
-        include_cell_fields=solver0.include_cell_fields,
-        check_every=check_every,
-    )
-    device = solver0.device
+    kw = chunk_keywords(solvers, band_hb, tol, max_iters, check_every, band_block)
+    device = solvers[0].device
     ready = None
     if device.type == "cuda":
         # the workers' streams start after everything this thread queued
@@ -538,7 +552,7 @@ def dispatch_plate_group(
         futures.append(shard_worker.submit(
             _solve_chunk, shard_device, ready, solvers[block],
             {name: a[block] for name, a in host.items()},
-            None if m_real is None else m_real[block], band_hb, kw, shard_info))
+            None if m_real is None else m_real[block], kw, shard_info))
     if own:
         for w in workers:
             w.close(wait=False)
@@ -566,17 +580,18 @@ def solve_plate_group(
     pad_group_to: int = 0,
     x0s=None,
     devices: Optional[Sequence] = None,
+    band_block: int = 0,
 ):
     """Solve all conditions of a group of same-bucket plates as one chunk.
 
     payloads: list of (PlateSolver, [StaticProblem, ...]) with equal
     shape_key and equal condition counts. `pad_group_to` repeats the last
     payload so every chunk has one fixed plate count; `devices` shards the
-    chunk (see dispatch_plate_group). Returns list-of-lists of SolveResult
-    matching the (unpadded) input."""
+    chunk; `band_block` picks the smoother (see dispatch_plate_group).
+    Returns list-of-lists of SolveResult matching the (unpadded) input."""
     token = dispatch_plate_group(
         payloads, tol=tol, max_iters=max_iters, pad_group_to=pad_group_to, x0s=x0s,
-        devices=devices,
+        devices=devices, band_block=band_block,
     )
     return fetch_plate_group(token, payloads)
 
@@ -692,6 +707,7 @@ def generate_data_batched(
     verbose: bool = True,
     banded: bool = True,
     device=None,
+    band_block: int = 0,
 ) -> Dict:
     """Multi-plate batched datagen: the throughput path.
 
@@ -710,6 +726,9 @@ def generate_data_batched(
     `banded` picks the band operator for plates whose RCM bandwidth fits
     (fem/banded.py), else every chunk uses the incidence operator. Solves
     and nodal images run on `device`, the CUDA device unless named.
+    `band_block` > 0 takes band-block Jacobi for every banded chunk's
+    smoother, fea_tpu's FEA_TPU_BAND_BLOCK (`dispatch_plate_group`; 0, the
+    default, is fea_tpu's).
 
     `n_devices` > 1 shards every chunk's plate axis over that many devices
     (`shard_devices`: `device` None means `cuda:0` .. `cuda:n-1`, the CPU
@@ -1050,7 +1069,7 @@ def generate_data_batched(
             t0 = timer()
             future = dispatch_plate_group(
                 payloads, pad_group_to=group_size, x0s=x0s, info=info, workers=workers,
-                devices=shards,
+                devices=shards, band_block=band_block,
             )
             future.add_done_callback(lambda _f, info=info: info.setdefault("done", timer()))
         stats["lane_dispatches"] += sum(len(i) for i in pendings)

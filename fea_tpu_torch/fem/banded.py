@@ -1,6 +1,5 @@
-"""Banded stiffness operator, the port of fea_tpu/fem/banded.py (the
-operator; the band-block Jacobi smoother that fea_tpu keeps behind an
-off-by-default switch is not ported).
+"""Banded stiffness operator and band-block Jacobi, the port of
+fea_tpu/fem/banded.py.
 
 K·u as a *dense banded* product instead of element gathers:
 
@@ -149,6 +148,119 @@ def banded_matvec(S, x, win_idx, hb: int):
     Xw = x_pad[..., win_idx]  # (..., nblk, W)
     y = torch.einsum("...brw,...bw->...br", S, Xw)
     return y.flatten(-2)
+
+
+def band_block_diagonal(S, hb: int, block: int):
+    """Extract K's (block x block) diagonal blocks from the band.
+
+    S: (..., nblk, R, W) block-shifted band (assemble_band). Returns
+    (..., n_dofs // block, block, block). Band geometry: S[i // R, i % R,
+    j - (i // R) * R + hb] = K[i, j], so diagonal block g (rows and
+    columns [g*block, (g+1)*block)) is a static-index gather. Entries whose
+    column offset falls outside the band window satisfy |i - j| > hb and
+    are exactly zero in K; they are masked to 0 here."""
+    nblk, R, W = S.shape[-3:]
+    lead = S.shape[:-3]
+    n_dofs = nblk * R
+    nb = n_dofs // block
+    g = torch.arange(nb, device=S.device)[:, None, None]
+    r = torch.arange(block, device=S.device)[None, :, None]
+    s = torch.arange(block, device=S.device)[None, None, :]
+    i = g * block + r
+    j = g * block + s
+    c = j - (i // R) * R + hb
+    valid = (c >= 0) & (c < W)
+    flat = i * W + torch.where(valid, c, 0)
+    D = S.flatten(-3)[..., flat.reshape(-1)].reshape(lead + (nb, block, block))
+    return D * valid.to(S.dtype)
+
+
+def _masked_cholesky(D, free_blocks, ridge: float):
+    """The masked, ridged SPD blocks' inverse Cholesky factor Linv (lower
+    triangular L's inverse), the block mask f, the masked diagonal and
+    whether each factorization succeeded.
+
+    Fixed (and ghost) rows and columns are zeroed and given a unit
+    diagonal; a relative ridge keeps the factorization positive against
+    zero-stiffness straddling cells. `cholesky_ex` reports a block that is
+    not positive definite by `info` > 0 with a partial factor (fea_tpu's
+    `jnp.linalg.cholesky` gives NaN there), so a block counts as failed
+    where `info` != 0; callers also test the result for finite values."""
+    B = D.shape[-1]
+    f = free_blocks.to(D.dtype)
+    Dm = D * f[..., :, None] * f[..., None, :]
+    diag = torch.diagonal(Dm, dim1=-2, dim2=-1)  # (..., nb, B)
+    mx = diag.max(dim=-1, keepdim=True).values
+    add = ridge * mx + torch.where(diag <= 0.0, 1.0, 0.0).to(D.dtype)
+    L, info = torch.linalg.cholesky_ex(Dm + torch.diag_embed(add))
+    eye = torch.eye(B, dtype=D.dtype, device=D.device)
+    Linv = torch.linalg.solve_triangular(L, eye.expand(L.shape), upper=False)
+    return Linv, f, diag, info == 0
+
+
+def spd_block_inverse(D, free_blocks, ridge: float = 1e-7):
+    """Exact-PSD inverse of masked SPD diagonal blocks.
+
+    D: (..., nb, B, B); free_blocks: (..., nb, B) 1.0 free / 0.0 fixed.
+    Fixed (and ghost-padding) rows and columns are re-masked to zero after
+    the factorization, so the preconditioner never injects residual at
+    constrained dofs. Returned as Linv^T Linv (Gram form): symmetric by
+    construction and PSD under any rounding. A block whose factorization
+    fails degrades to its scalar-Jacobi inverse (diag^-1 on the diagonal)
+    rather than poisoning the lane."""
+    Linv, f, diag, ok = _masked_cholesky(D, free_blocks, ridge)
+    inv = Linv.mT @ Linv
+    inv = inv * f[..., :, None] * f[..., None, :]
+    ok = ok & torch.isfinite(inv).all(dim=-1).all(dim=-1)
+    jac = torch.where(diag > 0.0, f / torch.where(diag > 0.0, diag, 1.0), 0.0)
+    return torch.where(ok[..., None, None], inv, torch.diag_embed(jac))
+
+
+def block_jacobi_apply(Dinv, x):
+    """z = blockdiag(Dinv) x on interleaved (..., n_dofs) vectors."""
+    B = Dinv.shape[-1]
+    xb = x.reshape(x.shape[:-1] + (-1, B, 1))
+    return (Dinv @ xb).flatten(-3)
+
+
+def spd_block_inv_factor(D, free_blocks, ridge: float = 1e-7, out_dtype=torch.bfloat16):
+    """Inverse Cholesky factor Linv of masked SPD diagonal blocks, for
+    the Gram-form preconditioner apply M r = Linv^T (Linv r).
+
+    Same masking and ridge as `spd_block_inverse`; returning the factor
+    halves the per-iteration read when stored bf16 (`out_dtype`): M =
+    L~^T L~ is symmetric PSD by construction for any rounding of the
+    factor, unlike a rounded explicit inverse. Columns at fixed dofs are
+    zeroed so M never injects residual there. A block whose factorization
+    fails degrades to scalar Jacobi (diag^-1/2 on the diagonal: its Gram
+    square is the scalar-Jacobi inverse)."""
+    Linv, f, diag, ok = _masked_cholesky(D, free_blocks, ridge)
+    Linv = Linv * f[..., None, :]
+    ok = ok & torch.isfinite(Linv).all(dim=-1).all(dim=-1)
+    jac = torch.where(diag > 0.0, f / torch.sqrt(torch.where(diag > 0.0, diag, 1.0)), 0.0)
+    Linv = torch.where(ok[..., None, None], Linv, torch.diag_embed(jac))
+    return Linv.to(out_dtype)
+
+
+def gram_apply(Linv, x, storage=None):
+    """z = blockdiag(Linv^T Linv) x on interleaved (..., n_dofs) vectors.
+
+    fea_tpu's two batched matvecs with the factor in its storage dtype:
+    x, and the intermediate Linv x, are rounded to `storage` (default
+    Linv's own dtype; round to nearest even) before each product, and the
+    products sum in f32 for a bf16 factor, else in the factor's dtype.
+    Both products run in that dtype on the rounded values (bf16 values
+    multiply exactly in f32). `Linv` may be an f32 copy of a bf16 factor
+    (exact), made once per solve, with `storage=torch.bfloat16`. Returns
+    x's dtype."""
+    storage = Linv.dtype if storage is None else storage
+    acc = torch.float32 if storage == torch.bfloat16 else storage
+    L = Linv.to(acc)
+    B = L.shape[-1]
+    xb = x.reshape(x.shape[:-1] + (-1, B, 1)).to(storage).to(acc)
+    y = L @ xb
+    z = L.mT @ y.to(storage).to(acc)
+    return z.flatten(-3).to(x.dtype)
 
 
 def planar_to_interleaved(u, n):

@@ -22,7 +22,8 @@ offsets of the per-plate tables the solvers already hold on the device):
 The operator is the incidence gather-sum (fem/assembly.py) or, for
 RCM-permuted plates, the dense band (fem/banded.py). Every sum of the
 set-up goes through `assembly.scatter_sum`, so a chunk repeats bit for
-bit on the card.
+bit on the card. fea_tpu's band-block Jacobi smoother is an argument
+here, off by default (`chunk_system`'s `band_block`).
 
 Replaces the reference's per-condition SuperLU factorizations
 (datagen/fea_analysis.py:418-461) as the datagen throughput core.
@@ -39,9 +40,12 @@ from .banded import (
     BAND_R,
     assemble_band,
     band_assembly_indices_dev,
+    band_block_diagonal,
     banded_matvec,
+    gram_apply,
     interleaved_to_planar,
     planar_to_interleaved,
+    spd_block_inv_factor,
     window_index,
 )
 from .coarse import coarse_inverse
@@ -153,7 +157,13 @@ def coarse_apply_flat(
 ) -> torch.Tensor:
     """z = P Kc^-1 P^T r: the restriction sums (rx, ry, -arm_y rx +
     arm_x ry) over each aggregate's member row, one batched dense matvec
-    per plate, the prolongation gathers by aggregate id."""
+    per plate, the prolongation gathers by aggregate id.
+
+    This is the arithmetic of fea_tpu's `fused` path (one (N, 3) segment
+    sum and one (N, 3) gather in place of three of each): the stacked
+    (3, N) moments are restricted through one gather of the member table
+    and one sum, and prolonged by one (N, 3) gather, so the switch has no
+    counterpart here."""
     n = agg_ids.shape[0]
     dtype = r_planar.dtype
     lead = r_planar.shape[:-1]
@@ -212,9 +222,17 @@ def chunk_system(
     *,
     n_coarse: int,
     band_hb: int = 0,
+    band_block: int = 0,
 ) -> ChunkSystem:
     """The per-solve set-up of a chunk: element stiffness, the operator
-    (band or incidence), the 2x2 block-Jacobi and coarse preconditioner."""
+    (band or incidence), the block-Jacobi and coarse preconditioner.
+
+    With the band (`band_hb` > 0), `band_block` > 0 takes K's diagonal
+    blocks of that many dofs from the band for the smoother (band-block
+    Jacobi, banded.spd_block_inv_factor) in place of the per-node 2x2
+    blocks; without the band it is ignored, as in fea_tpu. `band_block` is
+    degraded as fea_tpu's is: at least 128, less 128 at a time until it
+    divides 2*P*Nb, else off."""
     P, Nb, _ = coords_p.shape
     Mb = triangles_p.shape[1]
     C = young_pc.shape[1]
@@ -240,6 +258,13 @@ def chunk_system(
     Ke = torch.einsum("jim,jkcm->cikm", B, DB) * area  # (C,6,6,PM)
     diag = extract_diagonal(Ke, triangles, PN)  # (C,PN,2)
     free_planar = torch.cat([free, free], dim=-1)  # (C, 2PN)
+    if band_block > 0:
+        band_block = max(band_block, 128)
+        while band_block > 128 and (2 * PN) % band_block:
+            band_block -= 128
+        if (2 * PN) % band_block:
+            band_block = 0
+    gram_factor = None
     if band_hb > 0:
         # per-plate band indices address a (2*Nb*W,) plate-local buffer;
         # offset by each plate's row block (rows are plate-contiguous in
@@ -256,9 +281,18 @@ def chunk_system(
             yi = banded_matvec(S, planar_to_interleaved(u, PN), win_idx, band_hb)
             return interleaved_to_planar(yi, PN)
 
+        if band_block > 0:
+            # Band-block Jacobi: blocks may straddle plates, harmlessly
+            # (plates share no elements, so such a block is itself block
+            # diagonal). The factor is stored in bf16 as fea_tpu's is; its
+            # f32 copy (exact) is made once here, not at every iteration.
+            free_i = planar_to_interleaved(free_planar, PN).reshape(C, -1, band_block)
+            blocks = band_block_diagonal(S, band_hb, band_block)
+            gram_factor = spd_block_inv_factor(blocks, free_i).to(torch.float32)
     else:
         op = partial(apply_element_stiffness_planar, Ke, dof_idx, slots)
-    block_inv = invert_blocks(block_diagonal(Ke, triangles, PN))  # (C,2,2,PN)
+    if gram_factor is None:
+        block_inv = invert_blocks(block_diagonal(Ke, triangles, PN))  # (C,2,2,PN)
 
     Kc_inv = None
     if n_coarse > 0:
@@ -266,7 +300,11 @@ def chunk_system(
         Kc_inv = coarse_inverse(Kc)  # (C,P,3nc,3nc)
 
     def precondition(r):
-        z = (block_inv * r.reshape(C, 1, 2, PN)).sum(dim=-2).reshape(C, -1)
+        if gram_factor is not None:
+            zi = gram_apply(gram_factor, planar_to_interleaved(r, PN), storage=torch.bfloat16)
+            z = interleaved_to_planar(zi, PN)
+        else:
+            z = (block_inv * r.reshape(C, 1, 2, PN)).sum(dim=-2).reshape(C, -1)
         if Kc_inv is not None:
             z = z + coarse_apply_flat(Kc_inv, agg_ids, arms, members, r, P, n_coarse)
         return z * free_planar
@@ -293,12 +331,14 @@ def flat_group_body(
     restarts: int,
     include_cell_fields: bool = True,
     band_hb: int = 0,
+    band_block: int = 0,
     check_every: int = CHECK_EVERY,
     info: Optional[dict] = None,
     m_real_p=None,
 ):
     """The whole chunk's solve on the tables' device: `tables` are
-    `chunk_system`'s (coords_p ... x0_pc, and m_real_p for a band).
+    `chunk_system`'s (coords_p ... x0_pc, and m_real_p for a band; the
+    band switches are its too).
     Returns (P, C, K) packed f32 rows [u (Nb*2), (eps1 (Mb*3), sig1 (Mb*3)
     when include_cell_fields), converged, failed, rnorm, iters] — the
     layout `unpack_solve` expects. `info`, when given, receives the CG
@@ -312,7 +352,8 @@ def flat_group_body(
     Mb = triangles_p.shape[1]
     C = tables[6].shape[1]
     device = coords_p.device
-    system = chunk_system(*tables, m_real_p=m_real_p, n_coarse=n_coarse, band_hb=band_hb)
+    system = chunk_system(*tables, m_real_p=m_real_p, n_coarse=n_coarse, band_hb=band_hb,
+                          band_block=band_block)
     if info is not None:
         _synchronize(device)
         t_loop = time.perf_counter()
