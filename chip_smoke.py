@@ -3,9 +3,9 @@ CUDA card.
 
     python3 chip_smoke.py [--against TREE] [--only PHASES]
 
-Set-up: TF32 off for matmuls and convolutions; both kernel libraries (flash
-attention, fused GroupNorm+SiLU) are built at once, one nvcc each, from
-fea_tpu_torch/csrc into fea_tpu_torch/_build.
+Set-up: TF32 off for matmuls and convolutions; the three kernel libraries
+(flash attention, fused GroupNorm+SiLU, the CG loop) are built at once, one
+nvcc each, from fea_tpu_torch/csrc into fea_tpu_torch/_build.
 Phase 1: the flash kernel (tensor cores: 3xTF32 for f32, bf16 products
          for bf16) against its plain PyTorch version at the sampler's shape
          (BH 8, Nq 1024, Nk 1028, D 32) and a ragged one, f32 and bf16, timed
@@ -64,7 +64,8 @@ Phase 9: one flat datagen chunk at the production shape: 4 plates of the
          seeded GeometrySampler at mesh 1e-2 x 4 seeded conditions (16
          lanes), padded to their common buckets, with the scheduler's
          budget, solved through the solve worker with the band and with
-         the incidence operator. Every converged lane within 1e-3 of the
+         the incidence operator (the CG loop through its kernels, a block
+         of bodies replayed as one CUDA graph). Every converged lane within 1e-3 of the
          host's f64 direct solve, the operators within 1e-4 on the lanes
          both end under a residual of 1e-4, the chunk bit-identical when
          solved again; prints ms per chunk and per loop body, iterations
@@ -76,7 +77,9 @@ Phase 10: generate_data_batched at bench.py's config (512 px, 4 conditions
          timed; plates per hour, the solve counters, the StageTimer
          breakdown, ms per loop body inside the scheduler, peak memory;
          every plate directory holds the reference's file set with finite
-         ranges; two runs of 2 plates from one seed write the same bytes.
+         ranges; two runs of 2 plates from one seed write the same bytes;
+         the timed run's launches of the CG loop's kernels (the main
+         path's count for the kernels line; each must have launched).
 Phase 11: the regression Trainer at full width from
          InMemoryFEADataset.generate (2 plates x 4 conditions x 6 steps,
          256 px, mesh 2e-2, seed 11): a warm-up and one timed f32 step,
@@ -140,6 +143,22 @@ Phase 15: band-block Jacobi, the solver variant the port takes from
          ended under a residual of 1e-4 in both, PNGs within 1 gray level
          and ranges within 1e-3 of their span (raises otherwise).
          Measurements: no variant becomes a default.
+Phase 16: the CG loop's kernels (csrc/cg_segmented.cu) on phase 9's chunk.
+         At the loop's state 20 bodies in, each of the five launches
+         (cg_alpha, cg_update_xr, jacobi_restrict, prolong_dots,
+         cg_update_p) against its plain version on the same inputs (within
+         1e-5 of each output's span), both timed in turns beside the bytes
+         bound. The chunk solved through the plain versions on the card
+         (torch ops that copy into the loop's state in place: not the
+         parent's loop), the kernels without a graph, and the kernels in a
+         CUDA graph per block, in turns, 3 runs each: ms per body and per
+         chunk (median, min, max), device kernels per body (at most 20 on
+         the kernels' route), every converged lane within 1e-3 of the
+         host's f64 direct solve, each route repeated bit for bit, the graph
+         bit for bit the kernels' route, and within 1e-4 of the plain route's
+         on the lanes that both end under a residual of 1e-4. Blocks of 8,
+         16 and 32 bodies between host reads: ms, host reads, the same rows.
+         Two datagen runs of 2 plates from one seed: the same bytes.
 
 Kernel times are device times: CUDA events around calls that the host
 queued behind a device-side wait, each function timed in turns.
@@ -150,7 +169,7 @@ checkout's fea_tpu_torch/_build.
 
 The stores (about 7.6 GB at the production count), the checkpoints and
 the datagen trees are written under results/chip_smoke/ and deleted at
-the end. `--only 9,10,11` runs only those phases (any of 1 and 9-15; the
+the end. `--only 9,10,11` runs only those phases (any of 1 and 9-16; the
 card's name and power limit after them, no result line; phase 15 prints
 phase 10's plates per hour where 10 runs before it).
 
@@ -262,10 +281,19 @@ def load_ops(tree):
 
 
 def reset_counts():
-    from fea_tpu_torch.ops import flash_attention, group_norm_silu
+    from fea_tpu_torch.ops import cg, flash_attention, group_norm_silu
 
     flash_attention.launches = 0
     group_norm_silu.launches_fwd = group_norm_silu.launches_bwd = 0
+    for wrapper in cg.WRAPPERS:
+        wrapper.launches = 0
+
+
+def cg_counts():
+    """{name: launches} of the CG loop's kernels."""
+    from fea_tpu_torch.ops import cg
+
+    return {wrapper.__name__: wrapper.launches for wrapper in cg.WRAPPERS}
 
 
 def counts():
@@ -1420,10 +1448,12 @@ def phase_datagen(device, results, chunk_ms_body):
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     stages = StageTimer()
+    reset_counts()
     t0 = time.perf_counter()
     stats = generate_data_batched(data_dir=str(results / "timed"), num_plates=DATAGEN_TIMED_PLATES,
                                   seed=1234, stage_timer=stages, **common)
     wall = time.perf_counter() - t0
+    launches = cg_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     for plate in range(1, DATAGEN_TIMED_PLATES + 1):
         plate_files_ok(str(results / "timed" / str(plate)), DATAGEN["conditions_per_plate"],
@@ -1445,20 +1475,34 @@ def phase_datagen(device, results, chunk_ms_body):
         f"{stats['chunk_setup_s']:.2f} s, loops {stats['chunk_loop_s']:.2f} s over {bodies} bodies: "
         f"{ms_body:.3f} ms per loop body inside the scheduler (phase 9, alone: "
         f"{chunk_ms_body:.3f}); peak device memory {peak:.2f} GB")
+    log(f"phase 10: the CG loop's kernel launches in the timed run (each block's replays): "
+        f"{launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"phase 10: a CG kernel did not launch on the main path: {launches}")
     log("phase 10: stages (host clock)\n" + stages.summary())
 
+    datagen_repeat(device, results, "phase 10")
+    return DATAGEN_TIMED_PLATES / wall * 3600, launches
+
+
+def datagen_repeat(device, results, phase):
+    """Two runs of DATAGEN_REPEAT_PLATES plates from one seed at bench.py's
+    config: the same files byte for byte (raises otherwise)."""
+    from fea_tpu_torch.datagen import generate_data_batched
+
     trees = []
-    for tag in ("repeat_a", "repeat_b"):
-        generate_data_batched(data_dir=str(results / tag), num_plates=DATAGEN_REPEAT_PLATES,
-                              seed=99, **common)
-        trees.append(tree_bytes(results / tag))
+    for tag in ("a", "b"):
+        folder = results / f"repeat_{phase.replace(' ', '')}_{tag}"
+        generate_data_batched(data_dir=str(folder), num_plates=DATAGEN_REPEAT_PLATES, seed=99,
+                              device=device, **DATAGEN)
+        trees.append(tree_bytes(folder))
+        shutil.rmtree(folder, ignore_errors=True)
     if trees[0] != trees[1]:
         differ = sorted(k for k in trees[0].keys() | trees[1].keys()
                         if trees[0].get(k) != trees[1].get(k))
-        raise AssertionError(f"phase 10: the same seed wrote different files: {differ[:5]}")
-    log(f"phase 10: two runs of {DATAGEN_REPEAT_PLATES} plates from seed 99 wrote the same "
+        raise AssertionError(f"{phase}: the same seed wrote different files: {differ[:5]}")
+    log(f"{phase}: two runs of {DATAGEN_REPEAT_PLATES} plates from seed 99 wrote the same "
         f"{len(trees[0])} files byte for byte")
-    return DATAGEN_TIMED_PLATES / wall * 3600
 
 
 def phase_inmemory_train(device, results):
@@ -2390,17 +2434,318 @@ def phase_variants(device, results, default_plates_per_hour):
         raise AssertionError(f"phase 15: the datagen tree differs from the default's: {bad}")
 
 
+# phase 16: the CG loop's kernels (fea_tpu_torch/ops/cg.py) on phase 9's chunk
+CG_REPLACES = {
+    "cg_alpha": "fea_tpu/fem/solver.py:270", "cg_update_xr": "fea_tpu/fem/solver.py:270",
+    "jacobi_restrict": "fea_tpu/fem/flatgroup.py:329",
+    "prolong_dots": "fea_tpu/fem/flatgroup.py:329", "cg_update_p": "fea_tpu/fem/solver.py:270",
+}
+CG_SOURCE = "fea_tpu_torch/csrc/cg_segmented.cu"
+CG_STATE_BODIES = 20  # the kernels are held against the plain versions this far into the solve
+CG_KERNEL_REL = 1e-5  # a launch's outputs against the plain version's, of their span (f32)
+CG_ROUTE_RUNS = 3
+CG_BLOCKS = (8, 16, 32)
+CG_MAX_KERNELS = 20  # device kernels per default loop body
+F32_FLOPS = 67e12  # f32 outside the tensor cores
+
+
+class EagerBlock:
+    """In place of `ops.cg.capture`: the block's bodies as kernel launches
+    from the host, no graph."""
+
+    def __init__(self, fn, warmup, device):
+        self.fn = fn
+
+    def replay(self):
+        self.fn()
+
+    def close(self):
+        pass
+
+
+def cg_route(name):
+    """A context in which the chunk's loop takes route `name`: "graph" (as
+    it ships), "kernels" (the same launches, no graph) or "plain" (the
+    plain versions on the card, no graph: torch ops with the kernels'
+    signatures, which copy into the state in place, so more device kernels
+    a body than the torch-op loop the kernels replaced)."""
+    from contextlib import ExitStack
+
+    from fea_tpu_torch.ops import cg
+
+    stack = ExitStack()
+    if name != "graph":
+        stack.enter_context(mock.patch.object(cg, "capture", EagerBlock))
+    if name == "plain":
+        for wrapper in cg.WRAPPERS:
+            stack.enter_context(mock.patch.object(
+                cg, wrapper.__name__, getattr(cg, wrapper.__name__ + "_reference")))
+    return stack
+
+
+def chunk_state(system, P, tol, max_iters, bodies):
+    """The chunk's loop state after its restart set-up and `bodies` bodies
+    (through the kernels), with the loop's operator A."""
+    from fea_tpu_torch.fem.solver import segmented_body
+    from fea_tpu_torch.ops import cg
+
+    free = system.free
+    b = system.b * free
+    C, ndof = b.shape
+    st = cg.SegmentedState(C, P, ndof // (2 * P), b.dtype, b.device, max_iters, 180)
+
+    def A(u):
+        return system.op(u * free) * free
+
+    x = system.x0 * free
+    r = b - A(x)
+    z = system.precondition(r)
+    st.start(x, r, z, st.sdot(r, z), st.sdot(r, r),
+             torch.ones((C, P), dtype=torch.bool, device=b.device))
+    st.atol2.copy_((tol * torch.sqrt(st.sdot(b, b))) ** 2)
+    for _ in range(bodies):
+        segmented_body(st, A, system.precondition)
+    return st, A
+
+
+def cg_launches(st, A, pre):
+    """{name: (run(state, fn) -> outputs, kernel wrapper, plain version,
+    (bytes, operations) the launch must move and do at this state)}: each
+    of the loop's five launches on its inputs at the state `st`."""
+    from fea_tpu_torch.ops import cg
+
+    C, ndof = st.x.shape
+    PN = ndof // 2
+    item = st.x.element_size()
+    NA, W = pre.members.shape
+    Ap = A(st.p)
+    zj, zc = pre.parts(st.r)
+    agg, arms, free = pre.finish
+    cg.cg_alpha(st, Ap)  # the body's flags at this state
+    lanes = int(st.lane.sum()) / C  # the share of the lanes that run (update_xr)
+    segs = int((st.run & st.lane[:, None]).sum()) / (C * st.P)  # ... and of segments (update_p)
+    members = int((pre.members < PN).sum())  # real nodes in the member table
+    V = C * ndof * item
+    S = C * st.P  # segments
+
+    def alpha(s, fn):
+        fn(s, Ap)
+        return {"alpha": s.alpha, "run": s.run, "lane": s.lane}
+
+    def update_xr(s, fn):
+        fn(s, Ap)
+        return {"x": s.x, "r": s.r}
+
+    def jacobi(s, fn):
+        out = {"zj": torch.empty_like(s.r), "rc": s.r.new_empty((C, NA, 3))}
+        fn(s.r, pre.block_inv, pre.arms, pre.members, out["zj"], out["rc"])
+        return out
+
+    def prolong(s, fn):
+        fn(zj, zc, agg, arms, free, s.z, s.P, s)
+        return {"z": s.z, "rz": s.rz, "r2": s.r2, "best": s.best, "beta": s.beta,
+                "stall": s.stall, "k": s.k}
+
+    def update_p(s, fn):
+        fn(s)
+        return {"p": s.p}
+
+    # bytes: each input read once, each output written once (the
+    # reductions' partials and tickets are scratch); operations: each
+    # product and sum on the values this state reads
+    zc_bytes = C * NA * 3 * item
+    return {
+        "cg_alpha": (alpha, cg.cg_alpha, cg.cg_alpha_reference,
+                     (2 * V + S * (4 * item + 6) + C * 5, 2 * C * ndof)),
+        "cg_update_xr": (update_xr, cg.cg_update_xr, cg.cg_update_xr_reference,
+                         (6 * V * lanes + S * item + C, 4 * C * ndof * lanes)),
+        "jacobi_restrict": (jacobi, cg.jacobi_restrict, cg.jacobi_restrict_reference,
+                            (4 * V + NA * W * 4 + members * 2 * item + zc_bytes,
+                             3 * C * ndof + 6 * C * members)),
+        "prolong_dots": (prolong, cg.prolong_dots, cg.prolong_dots_reference,
+                         (4 * V + zc_bytes + PN * (2 * item + 4) + S * (6 * item + 9) + C * 9,
+                          8 * C * ndof)),
+        "cg_update_p": (update_p, cg.cg_update_p, cg.cg_update_p_reference,
+                        (3 * V * segs + S * (item + 1) + C, 2 * C * ndof * segs)),
+    }
+
+
+def launch_error(got, want):
+    """(max abs error, the largest error over a field's span) of a launch's
+    outputs against the plain version's."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for field, a in got.items():
+        b = want[field]
+        if b.dtype == torch.bool:
+            worst_rel = max(worst_rel, float((a != b).any()))
+            continue
+        a, b = a.double(), b.double()
+        err = float((a - b).abs().max())
+        span = float(b.max() - b.min()) or float(b.abs().max()) or 1.0
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / span)
+    return worst_abs, worst_rel
+
+
+def phase_cg_loop(device, results):
+    """Phase 16: the CG loop's kernels on phase 9's chunk, and a datagen
+    run repeated through them. Returns the kernels line's entries (less the
+    main path's launches) and the routes' ms per body."""
+    from fea_tpu_torch.datagen.batched import (
+        chunk_inputs, chunk_keywords, chunk_tables, dispatch_plate_group, unpack_plate_group)
+    from fea_tpu_torch.fem import direct_solve
+    from fea_tpu_torch.fem.flatgroup import chunk_system
+    from fea_tpu_torch.fem.solver import CHECK_EVERY
+
+    t0 = time.perf_counter()
+    chunk = chunk_payloads(device, banded=True)
+    s0 = chunk[0][0]
+    P, C = len(chunk), len(chunk[0][1])
+    direct = [[direct_solve(problem).displacements[-1] for problem in problems]
+              for _, problems in chunk]
+    solvers, host, m_real, band_hb = chunk_inputs(chunk)
+    kw = chunk_keywords(solvers, band_hb)
+    tables, m_real_p = chunk_tables(solvers, host, m_real, device)
+    system = chunk_system(*tables, m_real_p=m_real_p, n_coarse=kw["n_coarse"], band_hb=band_hb)
+    st, A = chunk_state(system, P, kw["tol"], kw["max_iters"], CG_STATE_BODIES)
+    log(f"phase 16: phase 9's chunk, {P} plates x {C} conditions, band hb {s0.band_hb}, "
+        f"{st.x.shape[1]} dofs a lane, member table {tuple(system.precondition.members.shape)}, "
+        f"{st.groups} blocks a segment in the reductions; set-up {time.perf_counter() - t0:.1f} s")
+
+    # (a) each launch against its plain version, then timed beside it
+    entries, bad = {}, []
+    for name, (run, kernel, plain, (nbytes, ops)) in cg_launches(st, A, system.precondition).items():
+        mine, theirs = st.clone(), st.clone()
+        err, rel = launch_error(run(mine, kernel), run(theirs, plain))
+        torch.cuda.synchronize()
+        if rel > CG_KERNEL_REL:
+            bad.append(name)
+        a, b = st.clone(), st.clone()
+        ms = in_turns({"kernel": lambda: run(a, kernel), "plain": lambda: run(b, plain)}, 50)
+        bound, bound_by = bound_ms(nbytes, ops, F32_FLOPS)
+        entries[name] = {"name": name, "route": "cuda", "source": CG_SOURCE,
+                         "replaces": CG_REPLACES[name], "max_abs_err": err, "rel_err": rel,
+                         "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
+                         "bound_by": bound_by, "library_ms": None}
+        log(f"phase 16: {name}: max abs err vs plain {err:.3e} ({rel:.3e} of the span, tolerance "
+            f"{CG_KERNEL_REL}); kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB)")
+    del st, a, b, mine, theirs
+    if bad:
+        raise AssertionError(f"phase 16: kernels off their plain versions: {bad}")
+
+    # (b) a body through the plain versions, the kernels and the kernels in a
+    # graph, each route's whole chunk solve in turns
+    routes = ("plain", "kernels", "graph")
+    for name in routes:  # warm-up
+        with cg_route(name):
+            dispatch_plate_group(chunk).result()
+    runs = {name: [] for name in routes}
+    first = {}
+    for name in routes + routes[::-1] + routes:
+        info = {}
+        with cg_route(name):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rows = dispatch_plate_group(chunk, info=info).result()
+            info["wall"] = time.perf_counter() - t1
+        info["bodies"] = CHECK_EVERY * (info["host_reads"] - s0.restarts)
+        info["same"] = torch.equal(rows, first.setdefault(name, rows))
+        runs[name].append(info)
+    solved = {name: unpack_plate_group(first[name].cpu().numpy(), chunk) for name in routes}
+    per_body = {}
+    for name in routes:
+        with cg_route(name):
+            per_body[name] = variant_kernels(device, chunk, {})
+
+    def spread(v):
+        v = sorted(v)
+        return f"{v[len(v) // 2]:.4f} [{v[0]:.4f}, {v[-1]:.4f}]"
+
+    failures, ms_body = [], {}
+    for name in routes:
+        worst, converged = 0.0, 0
+        for p, plate in enumerate(solved[name]):
+            for c, r in enumerate(plate):
+                if r.success:
+                    converged += 1
+                    want = direct[p][c]
+                    scale = max(float(np.abs(want).max()), 1e-30)
+                    worst = max(worst, float(np.abs(r.displacements[-1] - want).max()) / scale)
+        iters = [int(r.iterations) for plate in solved[name] for r in plate]
+        body_ms = [run["loop_s"] * 1e3 / max(run["bodies"], 1) for run in runs[name]]
+        ms_body[name] = sorted(body_ms)[len(body_ms) // 2]
+        log(f"phase 16: {name}: over {len(runs[name])} runs, median [min, max]: ms per body "
+            f"{spread(body_ms)}, chunk ms {spread([run['wall'] * 1e3 for run in runs[name]])}, "
+            f"loop ms {spread([run['loop_s'] * 1e3 for run in runs[name]])}; "
+            f"{runs[name][0]['bodies']} bodies, {runs[name][0]['host_reads']} host reads; "
+            f"{per_body[name]:.1f} device kernels per body; iterations sum {sum(iters)}, max "
+            f"{max(iters)}; repeats bit for bit: {all(run['same'] for run in runs[name])}; "
+            f"{converged} of {P * C} lanes converged, the worst within {worst:.3e} of the host's "
+            f"f64 direct solve (tolerance {CHUNK_DIRECT_REL})")
+        if converged == 0 or worst > CHUNK_DIRECT_REL or not all(run["same"] for run in runs[name]):
+            failures.append(name)
+    if per_body["kernels"] > CG_MAX_KERNELS:  # the graph's bodies are the same launches
+        failures.append(f"{per_body['kernels']:.1f} kernels per body")
+    # the routes lane by lane, on the lanes that end under a residual of
+    # 1e-4 under both (a lane near the f32 floor moves its iteration count
+    # under any change of the order of its sums)
+    for name in ("plain", "kernels"):
+        worst, compared = 0.0, 0
+        for p, plate in enumerate(solved["graph"]):
+            for c, r in enumerate(plate):
+                other = solved[name][p][c]
+                if max(float(r.residual_norm), float(other.residual_norm)) <= CHUNK_OPERATORS_RESIDUAL:
+                    compared += 1
+                    scale = max(float(np.abs(direct[p][c]).max()), 1e-30)
+                    worst = max(worst, float(np.abs(
+                        r.displacements[-1] - other.displacements[-1]).max()) / scale)
+        log(f"phase 16: graph vs {name}: {compared} lanes under a residual of "
+            f"{CHUNK_OPERATORS_RESIDUAL} in both, within {worst:.3e} of the largest displacement "
+            f"(tolerance {CHUNK_OPERATORS_REL})")
+        if compared == 0 or worst > CHUNK_OPERATORS_REL:
+            failures.append(f"graph vs {name}")
+    if not torch.equal(first["graph"], first["kernels"]):
+        failures.append("graph vs kernels not bit for bit")
+
+    # (c) blocks of 8, 16 and 32 bodies on the graph route, in turns
+    blocks = {n: [] for n in CG_BLOCKS}
+    for n in CG_BLOCKS + CG_BLOCKS[::-1]:
+        info = {}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows = dispatch_plate_group(chunk, check_every=n, info=info).result()
+        info["wall"] = time.perf_counter() - t1
+        info["same"] = torch.equal(rows, first["graph"])
+        blocks[n].append(info)
+    for n, infos in blocks.items():
+        bodies = n * (infos[0]["host_reads"] - s0.restarts)
+        walls = ", ".join(f"{i['wall'] * 1e3:.1f}" for i in infos)
+        body_ms = ", ".join(f"{i['loop_s'] * 1e3 / bodies:.4f}" for i in infos)
+        log(f"phase 16: check_every {n}: {bodies} bodies, {infos[0]['host_reads']} host reads; "
+            f"chunk ms {walls}; loop ms per body {body_ms}; the rows of blocks of {CHECK_EVERY} "
+            f"bit for bit: {all(i['same'] for i in infos)}")
+        if not all(i["same"] for i in infos):
+            failures.append(f"check_every {n}")
+    del system, tables
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"phase 16: {failures}")
+    datagen_repeat(device, results, "phase 16")
+    return entries, ms_body
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", metavar="TREE",
                         help="also time the kernels of this checkout, as `earlier`")
     parser.add_argument("--only", metavar="PHASES",
-                        help="run only these of the phases 1 and 9-15 (comma-separated); "
+                        help="run only these of the phases 1 and 9-16 (comma-separated); "
                              "such a partial run prints no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    from fea_tpu_torch.ops.cg import build as build_cg
     from fea_tpu_torch.ops.flash_attention import build as build_flash
     from fea_tpu_torch.ops.fused_norm import build as build_group_norm
     from fea_tpu_torch.utils.device import cuda_device
@@ -2410,7 +2755,7 @@ def main():
     device = cuda_device()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    builds = [build_flash, build_group_norm]
+    builds = [build_flash, build_group_norm, build_cg]
     earlier = None
     if args.against:
         earlier = load_ops(args.against)
@@ -2420,7 +2765,7 @@ def main():
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, started together
         libs = list(pool.map(lambda build: build(), builds))
     log(f"set-up: kernels built in {time.perf_counter() - t0:.1f} s")
-    for lib in libs[:2]:
+    for lib in libs[:3]:
         log(f"  {lib}")
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -2438,7 +2783,7 @@ def main():
                 elif n == 9:
                     chunk_ms_body = phase_chunk(device)
                 elif n == 10:
-                    plates_per_hour = phase_datagen(device, results, chunk_ms_body)
+                    plates_per_hour, _ = phase_datagen(device, results, chunk_ms_body)
                 elif n == 11:
                     phase_inmemory_train(device, results)
                 elif n == 12:
@@ -2449,8 +2794,10 @@ def main():
                     phase_data_parallel(device, results)
                 elif n == 15:
                     phase_variants(device, results, plates_per_hour)
+                elif n == 16:
+                    phase_cg_loop(device, results)
                 else:
-                    raise SystemExit(f"--only takes the phases 1 and 9 to 15, not {n}")
+                    raise SystemExit(f"--only takes the phases 1 and 9 to 16, not {n}")
                 log(f"phase {n} done in {time.perf_counter() - t0:.1f} s")
             log(nvidia_smi())
         finally:
@@ -2489,7 +2836,7 @@ def main():
         chunk_ms_body = phase_chunk(device)
         log(f"phase 9 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        plates_per_hour = phase_datagen(device, results, chunk_ms_body)
+        plates_per_hour, cg_launches = phase_datagen(device, results, chunk_ms_body)
         log(f"phase 10 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         phase_inmemory_train(device, results)
@@ -2506,6 +2853,9 @@ def main():
         t0 = time.perf_counter()
         phase_variants(device, results, plates_per_hour)
         log(f"phase 15 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cg_entries, _ = phase_cg_loop(device, results)
+        log(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)
 
@@ -2545,7 +2895,7 @@ def main():
             **gn["bwd"],
             "redesigned": REDESIGNED["group_norm_silu_bwd"],
         },
-    ]}))
+    ] + [dict(entry, launches=cg_launches[name]) for name, entry in cg_entries.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops import cg
 from .assembly import apply_element_stiffness_planar, element_dof_indices, scatter_sum
 from .banded import (
     BAND_R,
@@ -88,7 +89,7 @@ def flatten_tables(coords_p, triangles_p, slots_p, agg_p, arms_p, n_coarse):
 def flatten_members(members_p, n_nodes: int):
     """(P, nc, w) per-plate member tables, padded with the plate's node
     count `n_nodes` -> one (P*nc, w) table over the flat node axis, padded
-    with P*n_nodes (the index of the zero `coarse_apply_flat` appends)."""
+    with P*n_nodes (a padding entry the coarse restriction skips)."""
     P = members_p.shape[0]
     offsets = torch.arange(P, device=members_p.device)[:, None, None] * n_nodes
     flat = torch.where(members_p == n_nodes, P * n_nodes, members_p.to(torch.int64) + offsets)
@@ -157,30 +158,70 @@ def coarse_apply_flat(
 ) -> torch.Tensor:
     """z = P Kc^-1 P^T r: the restriction sums (rx, ry, -arm_y rx +
     arm_x ry) over each aggregate's member row, one batched dense matvec
-    per plate, the prolongation gathers by aggregate id.
+    per plate, the prolongation gathers by aggregate id: the coarse term
+    of `ChunkPreconditioner`, alone.
 
     This is the arithmetic of fea_tpu's `fused` path (one (N, 3) segment
     sum and one (N, 3) gather in place of three of each): the stacked
     (3, N) moments are restricted through one gather of the member table
     and one sum, and prolonged by one (N, 3) gather, so the switch has no
     counterpart here."""
-    n = agg_ids.shape[0]
-    dtype = r_planar.dtype
-    lead = r_planar.shape[:-1]
-    rx = r_planar[..., :n]
-    ry = r_planar[..., n:]
-    armx = arms[:, 0].to(dtype)
-    army = arms[:, 1].to(dtype)
-    moments = torch.stack([rx, ry, -army * rx + armx * ry], dim=-2)  # (..., 3, n)
-    moments = torch.cat([moments, moments.new_zeros(lead + (3, 1))], dim=-1)
-    rc = moments[..., members].sum(dim=-1)  # (..., 3, P*nc)
-    rc = rc.transpose(-1, -2).reshape(lead + (P, 3 * n_coarse))  # rows [3a+m]
-    # a matvec in the working dtype (see coarse.coarse_apply)
-    zc = torch.einsum("...pij,...pj->...pi", Kc_inv, rc)
-    zc3 = zc.reshape(lead + (P * n_coarse, 3))[..., agg_ids, :]  # (..., n, 3)
-    zx = zc3[..., 0] - army * zc3[..., 2]
-    zy = zc3[..., 1] + armx * zc3[..., 2]
-    return torch.cat([zx, zy], dim=-1)
+    coarse = ChunkPreconditioner(None, P, Kc_inv=Kc_inv, agg_ids=agg_ids, arms=arms,
+                                 members=members, n_coarse=n_coarse)
+    return coarse(r_planar)
+
+
+class ChunkPreconditioner:
+    """The chunk's preconditioner (fea_tpu/fem/flatgroup.py:329-343), z =
+    free * (Dblk^-1 r + P Kc^-1 P^T r) on planar (C, 2*P*Nb) vectors, with
+    the 2x2 block-Jacobi term (`block_inv`, (C, 2, 2, P*Nb)) or, under
+    band-block Jacobi, the Gram term of the f32 copy of the bf16 factor
+    (`gram_factor`), or neither; the coarse term where `Kc_inv` is given;
+    no mask where `free` is None.
+
+    `parts(r)` gives (zj, zc): the smoother's term, and the coarse solution
+    (C, P, 3nc) or None. The block-Jacobi term and the restriction are one
+    launch of `ops.cg.jacobi_restrict`, the Gram term torch ops, the coarse
+    matvec a batched product. What is left, the prolongation of zc by
+    aggregate id, the sum and the free mask, is `ops.cg.prolong_dots` over
+    the tables of `finish` (agg, arms, free): the CG loop runs it with its
+    dot products in one launch, and calling the object runs it alone."""
+
+    def __init__(self, free, P, block_inv=None, gram_factor=None, Kc_inv=None, agg_ids=None,
+                 arms=None, members=None, n_coarse=0):
+        self.free, self.P, self.n_coarse = free, P, n_coarse
+        self.block_inv, self.gram_factor, self.Kc_inv = block_inv, gram_factor, Kc_inv
+        coarse = Kc_inv is not None
+        self.arms = arms.to(Kc_inv.dtype).contiguous() if coarse else None
+        self.agg = agg_ids.to(torch.int32).contiguous() if coarse else None
+        self.members = members.to(torch.int32).contiguous() if coarse else None
+        self.finish = (self.agg, self.arms, free)
+
+    def parts(self, r):
+        C, ndof = r.shape
+        PN = ndof // 2
+        zj = rc = None
+        if self.gram_factor is not None:
+            zi = gram_apply(self.gram_factor, planar_to_interleaved(r, PN), storage=torch.bfloat16)
+            zj = interleaved_to_planar(zi, PN)
+        if self.Kc_inv is not None:
+            rc = r.new_empty((C, self.P * self.n_coarse, 3))
+        if self.block_inv is not None:
+            zj = torch.empty_like(r)
+            cg.jacobi_restrict(r, self.block_inv, self.arms, self.members, zj, rc)
+        elif rc is not None:
+            cg.jacobi_restrict(r, None, self.arms, self.members, None, rc)
+        zc = None
+        if rc is not None:
+            zc = torch.einsum("...pij,...pj->...pi", self.Kc_inv,
+                              rc.reshape(C, self.P, 3 * self.n_coarse))
+        return zj, zc
+
+    def __call__(self, r):
+        zj, zc = self.parts(r)
+        z = torch.empty_like(r)
+        cg.prolong_dots(zj, zc, self.agg, self.arms, self.free, z, self.P)
+        return z
 
 
 def _synchronize(device) -> None:
@@ -291,6 +332,7 @@ def chunk_system(
             gram_factor = spd_block_inv_factor(blocks, free_i).to(torch.float32)
     else:
         op = partial(apply_element_stiffness_planar, Ke, dof_idx, slots)
+    block_inv = None
     if gram_factor is None:
         block_inv = invert_blocks(block_diagonal(Ke, triangles, PN))  # (C,2,2,PN)
 
@@ -298,16 +340,9 @@ def chunk_system(
     if n_coarse > 0:
         Kc = build_coarse_matrix_flat(Ke, triangles, agg_ids, arms, free, P, n_coarse)
         Kc_inv = coarse_inverse(Kc)  # (C,P,3nc,3nc)
-
-    def precondition(r):
-        if gram_factor is not None:
-            zi = gram_apply(gram_factor, planar_to_interleaved(r, PN), storage=torch.bfloat16)
-            z = interleaved_to_planar(zi, PN)
-        else:
-            z = (block_inv * r.reshape(C, 1, 2, PN)).sum(dim=-2).reshape(C, -1)
-        if Kc_inv is not None:
-            z = z + coarse_apply_flat(Kc_inv, agg_ids, arms, members, r, P, n_coarse)
-        return z * free_planar
+    precondition = ChunkPreconditioner(
+        free_planar, P, block_inv=block_inv, gram_factor=gram_factor, Kc_inv=Kc_inv,
+        agg_ids=agg_ids, arms=arms, members=members, n_coarse=n_coarse)
 
     return ChunkSystem(
         op=op,

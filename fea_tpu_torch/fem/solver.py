@@ -8,27 +8,30 @@ that feed the host-side condition-resampling loop (reference
 datagen/generate.py:110-124).
 
 fea_tpu runs the iteration as a `lax.while_loop` inside one compiled
-program. Here every iteration is a handful of tensor operations queued on
-the device, and every scalar of the recurrence (alpha, beta, rz, the
-tolerances, the stall counter, the flags) stays a 0-d tensor there. The
-body is a masked update: the loop condition is computed on the device and
-the state takes its new values only where the condition holds, so
+program. Here every scalar of the recurrence (alpha, beta, rz, the
+tolerances, the stall counter, the flags) stays a tensor on the device, and
+the body is a masked update: the loop condition is computed on the device
+and the state takes its new values only where the condition holds, so
 iterations past the exit change nothing. The host reads the condition once
 before each block of `check_every` iterations; the result and the
 iteration count are those of the while_loop whatever the block length.
+`pcg_solve` queues a body as torch operations; `pcg_solve_segmented`, the
+flat chunk's loop, runs a body as the hand-written kernels of `ops.cg`
+and replays a block of bodies as one CUDA graph on the card.
 """
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from ..ops import cg
 from .assembly import scatter_sum
 
 
-# Iterations queued between two host reads of the loop's condition. While
-# the host's dispatch of the small kernels sets the pace (PERF.md), bodies
-# queued past an exit cost as much as real ones, so blocks are short; a
-# loop captured in a CUDA graph would want them longer.
+# Iterations queued between two host reads of the loop's condition. Bodies
+# queued past an exit cost as much as real ones, so blocks are short;
+# chip_smoke.py phase 16 times 8, 16 and 32 on the captured block.
 CHECK_EVERY = 8
 
 
@@ -228,6 +231,43 @@ def pcg_solve(
     )
 
 
+class ScalarJacobi:
+    """The segmented loop's default preconditioner, M^-1 r = inv_diag * r
+    on (L, ndof) vectors, in the interface the loop takes from every
+    preconditioner (the flat chunk's is `flatgroup.ChunkPreconditioner`):
+    `parts(r)` gives (zj, zc), the term before the prolongation and the
+    coarse solution (here None), and `finish` the tables (agg, arms, free)
+    of the prolongation and the free mask (here none)."""
+
+    finish = (None, None, None)
+
+    def __init__(self, inv_diag):
+        self.inv_diag = inv_diag
+
+    def parts(self, r):
+        return self.inv_diag * r, None
+
+    def __call__(self, r):
+        return self.inv_diag * r
+
+
+def segmented_body(state, A, precondition):
+    """One body of the segmented loop on `state` (an `ops.cg.SegmentedState`)
+    in place: one iteration of every lane whose condition holds, the other
+    lanes keep every leaf. `A` maps (L, 2 * P * Ns) vectors; `precondition`
+    has `parts` and `finish` (`ScalarJacobi`'s interface): the loop applies
+    its prolongation and free mask in the dot-product launch. The launches
+    are `ops.cg`'s: the kernels for CUDA tensors, the plain versions for
+    CPU tensors."""
+    Ap = A(state.p)
+    cg.cg_alpha(state, Ap)
+    cg.cg_update_xr(state, Ap)
+    zj, zc = precondition.parts(state.r)
+    agg, arms, free = precondition.finish
+    cg.prolong_dots(zj, zc, agg, arms, free, state.z, state.P, state)
+    cg.cg_update_p(state)
+
+
 def pcg_solve_segmented(
     operator,
     b,
@@ -250,9 +290,13 @@ def pcg_solve_segmented(
     (conditions) that share nothing but the loop; the last axis is planar
     over the concatenated node axis, component-major, segments contiguous
     within each component block — so every segment reduction is a reshape
-    to (..., 2, n_seg, Ns) and a sum, and every scalar broadcast is the
-    inverse reshape. `operator` and `precondition` take and return vectors
-    of that shape.
+    to (L, 2, n_seg, Ns) and a sum, and every scalar broadcast is the
+    inverse reshape. `operator` takes and returns vectors of the callers'
+    shape. The loop runs on the lanes flattened to one axis L, so a given
+    `precondition` takes (L, ndof) vectors, is callable, and has
+    `ScalarJacobi`'s `parts` and `finish` (the flat chunk's
+    `flatgroup.ChunkPreconditioner`); the default is scalar Jacobi on
+    `diag`.
 
     Mathematically identical to running `pcg_solve` per segment (the
     scalars decouple exactly on a block-diagonal operator). Segments that
@@ -264,6 +308,12 @@ def pcg_solve_segmented(
     iteration counts are the while_loop's for any `check_every`. The host
     reads whether any lane runs once per block of `check_every` bodies.
 
+    A body is the five launches of `ops.cg` around the operator (and the
+    preconditioner's coarse matvec), on the state's tensors in place. On a
+    CUDA device they are the hand-written kernels, and a block of
+    `check_every` bodies is captured once per solve as a CUDA graph and
+    replayed; on the CPU they are the plain torch versions, run eagerly.
+
     Returns CGResult with (..., n_seg) residual_norm / iterations /
     converged / failed; each restart adds its lane's k to every segment
     that was active in it (the lockstep cost the lane paid)."""
@@ -271,112 +321,86 @@ def pcg_solve_segmented(
         accept_tol = tol * 100.0
     stall_limit = 180
     dtype = b.dtype
+    device = b.device
     free = free_mask.to(dtype)
-    bm = b * free
-    lead = tuple(bm.shape[:-1])
-    ndof = bm.shape[-1]
+    lead = tuple(torch.broadcast_shapes(b.shape, free.shape)[:-1])
+    ndof = b.shape[-1]
     Ns = ndof // (2 * n_seg)
-    seg_shape = lead + (2, n_seg, Ns)
+    L = math.prod(lead)
+    state = cg.SegmentedState(L, n_seg, Ns, dtype, device, max_iters, stall_limit)
+    sdot = state.sdot
 
-    def sdot(u, v):
-        return (u * v).reshape(seg_shape).sum(dim=(-3, -1))
+    def lanes(u):  # (L, ndof) -> the callers' (..., ndof)
+        return u.reshape(lead + (ndof,))
 
-    def expand(s):  # (..., n_seg) -> (..., ndof)
-        return s[..., None, :, None].expand(seg_shape).reshape(lead + (ndof,))
-
-    inv_diag = free / torch.where(diag.abs() > 1e-30, diag, 1.0)
+    def flat(u):  # the callers' (..., ndof), or one vector for every lane -> (L, ndof)
+        return u.expand(lead + (ndof,)).reshape(L, ndof)
 
     def A(u):
-        return operator(u * free) * free
+        return flat(operator(lanes(u) * free) * free)
 
     if precondition is None:
+        precondition = ScalarJacobi(flat(free / torch.where(diag.abs() > 1e-30, diag, 1.0)))
 
-        def precondition(r):
-            return inv_diag * r
-
+    bm = flat(b * free)
     b_norm = torch.sqrt(sdot(bm, bm))
     b_norm = torch.where(b_norm > 0, b_norm, 1.0)
-    atol2 = (tol * b_norm) ** 2
+    state.atol2.copy_((tol * b_norm) ** 2)
 
-    def running_of(state):
-        x, r, p, rz, r2, k, best_r2, stall, active = state
-        return (r2 > atol2) & torch.isfinite(r2) & (stall < stall_limit) & active
+    def block():
+        for _ in range(check_every):
+            segmented_body(state, A, precondition)
 
-    def lane_of(state, run):
-        return run.any(dim=-1) & (state[5] < max_iters)
+    def warmup():  # the body's library calls, on the capture stream
+        A(state.p)
+        precondition.parts(state.r)
 
-    def body(state):
-        """One iteration of every lane whose condition holds; the other
-        lanes keep every leaf."""
-        x, r, p, rz, r2, k, best_r2, stall, active = state
-        run = running_of(state)
-        lane = lane_of(state, run)
-        Ap = A(p)
-        pAp = sdot(p, Ap)
-        alpha = expand(torch.where(run, rz / torch.where(pAp != 0, pAp, 1.0), 0.0))
-        x_new = x + alpha * p
-        r_new = r - alpha * Ap
-        z = precondition(r_new)
-        rz_new = sdot(r_new, z)
-        beta = torch.where(run, rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
-        p_new = torch.where(expand(run), z + expand(beta) * p, p)
-        rz_next = torch.where(run, rz_new, rz)
-        r2_new = sdot(r_new, r_new)
-        improved = run & (r2_new < 0.9 * best_r2)
-        best_new = torch.where(improved, r2_new, best_r2)
-        stall_new = torch.where(improved, 0, torch.where(run, stall + 1, stall))
-        keep = lane[..., None]
-        return (
-            torch.where(keep, x_new, x),
-            torch.where(keep, r_new, r),
-            torch.where(keep, p_new, p),
-            torch.where(keep, rz_next, rz),
-            torch.where(keep, r2_new, r2),
-            k + lane.to(k.dtype),
-            torch.where(keep, best_new, best_r2),
-            torch.where(keep, stall_new, stall),
-            active,
-        )
-
-    x = torch.zeros_like(bm) if x0 is None else x0 * free
-    seg_zero = torch.zeros(lead + (n_seg,), dtype=torch.int32, device=b.device)
-    total_iters = seg_zero
-    active = torch.ones(lead + (n_seg,), dtype=torch.bool, device=b.device)
+    x = torch.zeros_like(bm) if x0 is None else flat(x0 * free)
+    total_iters = torch.zeros((L, n_seg), dtype=torch.int32, device=device)
+    active = torch.ones((L, n_seg), dtype=torch.bool, device=device)
     host_reads = 0
-    for _ in range(max(restarts, 1)):
-        r = bm - A(x)
-        z = precondition(r)
-        rz = sdot(r, z)
-        healthy = torch.isfinite(rz)
-        hm = expand(healthy)
-        x = torch.where(hm, x, 0.0)
-        r = torch.where(hm, r, bm)
-        z = torch.where(hm, z, precondition(bm))
-        rz = torch.where(healthy, rz, sdot(r, precondition(r)))
-        r2_start = sdot(r, r)
-        k0 = torch.zeros(lead, dtype=torch.int32, device=b.device)
-        state = (x, r, z, rz, r2_start, k0, r2_start, seg_zero, active)
-        while True:
-            host_reads += 1
-            if not bool(lane_of(state, running_of(state)).any()):  # one host read per block
-                break
-            for _ in range(check_every):
-                state = body(state)
-        x, r, _, _, r2_end, k, _, _, _ = state
-        total_iters = total_iters + torch.where(active, k[..., None], 0).to(torch.int32)
-        active = active & (r2_end < 0.9 * r2_start)
+    graph = None
+    try:
+        for _ in range(max(restarts, 1)):
+            r = bm - A(x)
+            z = precondition(r)
+            rz = sdot(r, z)
+            healthy = torch.isfinite(rz)
+            hm = state.expand(healthy)
+            x = torch.where(hm, x, 0.0)
+            r = torch.where(hm, r, bm)
+            z = torch.where(hm, z, precondition(bm))
+            rz = torch.where(healthy, rz, sdot(r, precondition(r)))
+            r2_start = sdot(r, r)
+            state.start(x, r, z, rz, r2_start, active)
+            while True:
+                host_reads += 1
+                if not bool(state.lanes_running().any()):  # one host read per block
+                    break
+                if device.type == "cpu":
+                    block()
+                else:
+                    if graph is None:
+                        graph = cg.capture(block, warmup, device)
+                    graph.replay()
+            x = state.x
+            total_iters = total_iters + torch.where(active, state.k[:, None], 0).to(torch.int32)
+            active = active & (state.r2 < 0.9 * r2_start)
+    finally:
+        if graph is not None:  # its memory pool is freed with it
+            graph.close()
 
     rtrue = bm - A(x)
     rnorm = torch.sqrt(sdot(rtrue, rtrue)) / b_norm
-    finite_x = torch.isfinite(x).reshape(seg_shape).all(dim=-1).all(dim=-2)
-    failed = ~torch.isfinite(rnorm) | ~finite_x
+    failed = ~torch.isfinite(rnorm) | ~torch.isfinite(state.segments(x)).all(dim=-1).all(dim=-2)
     converged = (rnorm <= accept_tol) & ~failed
+    seg_lead = lead + (n_seg,)
     return CGResult(
-        x=x * free,
-        residual_norm=rnorm,
-        iterations=total_iters,
-        converged=converged,
-        failed=failed,
+        x=lanes(x) * free,
+        residual_norm=rnorm.reshape(seg_lead),
+        iterations=total_iters.reshape(seg_lead),
+        converged=converged.reshape(seg_lead),
+        failed=failed.reshape(seg_lead),
         host_reads=host_reads,
     )
 
