@@ -3,9 +3,10 @@ CUDA card.
 
     python3 chip_smoke.py [--against TREE] [--only PHASES]
 
-Set-up: TF32 off for matmuls and convolutions; the three kernel libraries
-(flash attention, fused GroupNorm+SiLU, the CG loop) are built at once, one
-nvcc each, from fea_tpu_torch/csrc into fea_tpu_torch/_build.
+Set-up: TF32 off for matmuls and convolutions; the four kernel libraries
+(flash attention, fused GroupNorm+SiLU, the CG loop, the band operator) are
+built at once, one nvcc each, from fea_tpu_torch/csrc into
+fea_tpu_torch/_build.
 Phase 1: the flash kernel (tensor cores: 3xTF32 for f32, bf16 products
          for bf16) against its plain PyTorch version at the sampler's shape
          (BH 8, Nq 1024, Nk 1028, D 32) and a ragged one, f32 and bf16, timed
@@ -65,21 +66,23 @@ Phase 9: one flat datagen chunk at the production shape: 4 plates of the
          lanes), padded to their common buckets, with the scheduler's
          budget, solved through the solve worker with the band and with
          the incidence operator (the CG loop through its kernels, a block
-         of bodies replayed as one CUDA graph). Every converged lane within 1e-3 of the
+         of bodies replayed as one CUDA graph; the band through its
+         non-zeros, csrc/band_matvec.cu). Every converged lane within 1e-3 of the
          host's f64 direct solve, the operators within 1e-4 on the lanes
          both end under a residual of 1e-4, the chunk bit-identical when
          solved again; prints ms per chunk and per loop body, iterations
          per lane, host reads, device kernels per body (operator,
-         preconditioner, the rest), bytes of band per iteration, peak
-         memory.
+         preconditioner, the rest), the band operator's bytes per
+         iteration (its non-zeros, beside the dense band's), peak memory.
 Phase 10: generate_data_batched at bench.py's config (512 px, 4 conditions
          x 6 steps, mesh 1e-2, displacement images): 4 warm-up plates, 16
          timed; plates per hour, the solve counters, the StageTimer
          breakdown, ms per loop body inside the scheduler, peak memory;
          every plate directory holds the reference's file set with finite
          ranges; two runs of 2 plates from one seed write the same bytes;
-         the timed run's launches of the CG loop's kernels (the main
-         path's count for the kernels line; each must have launched).
+         the timed run's launches of the CG loop's kernels and the band
+         operator's (the main path's count for the kernels line; each
+         must have launched).
 Phase 11: the regression Trainer at full width from
          InMemoryFEADataset.generate (2 plates x 4 conditions x 6 steps,
          256 px, mesh 2e-2, seed 11): a warm-up and one timed f32 step,
@@ -143,17 +146,23 @@ Phase 15: band-block Jacobi, the solver variant the port takes from
          ended under a residual of 1e-4 in both, PNGs within 1 gray level
          and ranges within 1e-3 of their span (raises otherwise).
          Measurements: no variant becomes a default.
-Phase 16: the CG loop's kernels (csrc/cg_segmented.cu) on phase 9's chunk.
-         At the loop's state 20 bodies in, each of the five launches
-         (cg_alpha, cg_update_xr, jacobi_restrict, prolong_dots,
-         cg_update_p) against its plain version on the same inputs (within
-         1e-5 of each output's span), both timed in turns beside the bytes
-         bound. The chunk solved through the plain versions on the card
+Phase 16: the CG loop's kernels (csrc/cg_segmented.cu) and the band
+         operator's (csrc/band_matvec.cu) on phase 9's chunk. At the loop's
+         state 20 bodies in, each of the five launches (cg_alpha,
+         cg_update_xr, jacobi_restrict, prolong_dots, cg_update_p) against
+         its plain version on the same inputs (within 1e-5 of each
+         output's span), both timed in turns beside the bytes bound; the
+         band kernel on p against its plain version and the dense band's
+         product (within 1e-5 of y's span), the three timed in turns
+         beside one cuSPARSE call (torch.mv on a block-diagonal CSR of the
+         same tables) and the bound of the non-zeros' bytes, with the
+         non-zeros a lane and the slots a row. The chunk solved through
+         the plain versions on the card
          (torch ops that copy into the loop's state in place: not the
          parent's loop), the kernels without a graph, and the kernels in a
          CUDA graph per block, in turns, 3 runs each: ms per body and per
-         chunk (median, min, max), device kernels per body (at most 20 on
-         the kernels' route), every converged lane within 1e-3 of the
+         chunk (median, min, max), device kernels per body (at most 10 on
+         the kernels' and the graph's routes), every converged lane within 1e-3 of the
          host's f64 direct solve, each route repeated bit for bit, the graph
          bit for bit the kernels' route, and within 1e-4 of the plain route's
          on the lanes that both end under a residual of 1e-4. Blocks of 8,
@@ -280,20 +289,25 @@ def load_ops(tree):
     return module
 
 
+def loop_wrappers():
+    """The wrappers of the CG loop's kernels and the band operator's."""
+    from fea_tpu_torch.ops import band, cg
+
+    return cg.WRAPPERS + (band.band_matvec,)
+
+
 def reset_counts():
-    from fea_tpu_torch.ops import cg, flash_attention, group_norm_silu
+    from fea_tpu_torch.ops import flash_attention, group_norm_silu
 
     flash_attention.launches = 0
     group_norm_silu.launches_fwd = group_norm_silu.launches_bwd = 0
-    for wrapper in cg.WRAPPERS:
+    for wrapper in loop_wrappers():
         wrapper.launches = 0
 
 
 def cg_counts():
-    """{name: launches} of the CG loop's kernels."""
-    from fea_tpu_torch.ops import cg
-
-    return {wrapper.__name__: wrapper.launches for wrapper in cg.WRAPPERS}
+    """{name: launches} of the CG loop's kernels and the band operator's."""
+    return {wrapper.__name__: wrapper.launches for wrapper in loop_wrappers()}
 
 
 def counts():
@@ -1307,7 +1321,7 @@ def phase_chunk(device):
     from fea_tpu_torch.datagen.batched import chunk_inputs, chunk_tables, unpack_plate_group
     from fea_tpu_torch.fem import direct_solve
     from fea_tpu_torch.fem.flatgroup import chunk_system, flat_group_body
-    from fea_tpu_torch.fem.solver import CHECK_EVERY
+    from fea_tpu_torch.fem.solver import CHECK_EVERY, masked_operator
 
     t0 = time.perf_counter()
     band = chunk_payloads(device, banded=True)
@@ -1366,21 +1380,27 @@ def phase_chunk(device):
         f"(tolerance {CHUNK_DIRECT_REL}, {converged} lanes); band vs incidence {worst_ops:.3e} "
         f"(tolerance {CHUNK_OPERATORS_REL}, {compared} lanes that both ended at a residual of at "
         f"most {CHUNK_OPERATORS_RESIDUAL}); the band solve again: the same bit "
-        f"for bit; band {band_bytes / 1e9:.3f} GB read per iteration; peak device memory {peak:.2f} GB")
+        f"for bit; peak device memory {peak:.2f} GB")
     if converged == 0 or compared == 0:
         raise AssertionError(f"phase 9: {converged} converged lanes, {compared} compared")
     if worst_direct > CHUNK_DIRECT_REL or worst_ops > CHUNK_OPERATORS_REL:
         raise AssertionError("phase 9: a converged lane is off the direct solve or the other operator")
 
     # kernels per loop body, split by what torch.profiler can tell apart:
-    # the operator (with the loop's two free-dof masks) and the
-    # preconditioner, one call each; the recurrence is the rest of a body
+    # the operator as the loop applies it (with the free-dof masks) and
+    # the preconditioner, one call each; the recurrence is the rest of a body
     for name, payloads in (("band", band), ("incidence", plain)):
         solvers, host, m_real, band_hb = chunk_inputs(payloads)
         tables, m_real_p = chunk_tables(solvers, host, m_real, device)
         system = chunk_system(*tables, m_real_p=m_real_p, n_coarse=s0.n_coarse, band_hb=band_hb)
         r = system.b * system.free
-        k_op = device_kernels(lambda: system.op(r * system.free) * system.free)
+        A = masked_operator(system.op, system.free)
+        k_op = device_kernels(lambda: A(r))
+        if name == "band":
+            nbytes = band_operator_bytes(system.op.vals, system.op.cols, r)
+            log(f"phase 9: the band operator reads {nbytes / 1e6:.3f} MB per iteration (its "
+                f"non-zeros, their columns, u and y), where the dense band was "
+                f"{band_bytes / 1e9:.3f} GB; {system.op.cols.shape[1]} slots a row")
         k_pre = device_kernels(lambda: system.precondition(r))
         k_setup = device_kernels(lambda: chunk_system(
             *tables, m_real_p=m_real_p, n_coarse=s0.n_coarse, band_hb=band_hb))
@@ -1475,10 +1495,10 @@ def phase_datagen(device, results, chunk_ms_body):
         f"{stats['chunk_setup_s']:.2f} s, loops {stats['chunk_loop_s']:.2f} s over {bodies} bodies: "
         f"{ms_body:.3f} ms per loop body inside the scheduler (phase 9, alone: "
         f"{chunk_ms_body:.3f}); peak device memory {peak:.2f} GB")
-    log(f"phase 10: the CG loop's kernel launches in the timed run (each block's replays): "
-        f"{launches}")
+    log(f"phase 10: the CG loop's and the band operator's kernel launches in the timed run "
+        f"(each block's replays): {launches}")
     if min(launches.values()) == 0:
-        raise AssertionError(f"phase 10: a CG kernel did not launch on the main path: {launches}")
+        raise AssertionError(f"phase 10: a loop kernel did not launch on the main path: {launches}")
     log("phase 10: stages (host clock)\n" + stages.summary())
 
     datagen_repeat(device, results, "phase 10")
@@ -2445,8 +2465,11 @@ CG_STATE_BODIES = 20  # the kernels are held against the plain versions this far
 CG_KERNEL_REL = 1e-5  # a launch's outputs against the plain version's, of their span (f32)
 CG_ROUTE_RUNS = 3
 CG_BLOCKS = (8, 16, 32)
-CG_MAX_KERNELS = 20  # device kernels per default loop body
+CG_MAX_KERNELS = 10  # device kernels per default loop body
 F32_FLOPS = 67e12  # f32 outside the tensor cores
+BAND_SOURCE = "fea_tpu_torch/csrc/band_matvec.cu"
+BAND_REPLACES = "fea_tpu/fem/banded.py:161"
+BAND_KERNEL_REL = 1e-5  # the band kernel against its plain versions, of y's span (f32)
 
 
 class EagerBlock:
@@ -2466,36 +2489,35 @@ class EagerBlock:
 def cg_route(name):
     """A context in which the chunk's loop takes route `name`: "graph" (as
     it ships), "kernels" (the same launches, no graph) or "plain" (the
-    plain versions on the card, no graph: torch ops with the kernels'
-    signatures, which copy into the state in place, so more device kernels
-    a body than the torch-op loop the kernels replaced)."""
+    plain versions on the card, the band operator's included, no graph:
+    torch ops with the kernels' signatures, which copy into the state in
+    place, so more device kernels a body than the torch-op loop the
+    kernels replaced)."""
     from contextlib import ExitStack
 
-    from fea_tpu_torch.ops import cg
+    from fea_tpu_torch.ops import band, cg
 
     stack = ExitStack()
     if name != "graph":
         stack.enter_context(mock.patch.object(cg, "capture", EagerBlock))
     if name == "plain":
-        for wrapper in cg.WRAPPERS:
+        for module, wrapper in [(cg, w) for w in cg.WRAPPERS] + [(band, band.band_matvec)]:
             stack.enter_context(mock.patch.object(
-                cg, wrapper.__name__, getattr(cg, wrapper.__name__ + "_reference")))
+                module, wrapper.__name__, getattr(module, wrapper.__name__ + "_reference")))
     return stack
 
 
 def chunk_state(system, P, tol, max_iters, bodies):
     """The chunk's loop state after its restart set-up and `bodies` bodies
     (through the kernels), with the loop's operator A."""
-    from fea_tpu_torch.fem.solver import segmented_body
+    from fea_tpu_torch.fem.solver import masked_operator, segmented_body
     from fea_tpu_torch.ops import cg
 
     free = system.free
     b = system.b * free
     C, ndof = b.shape
     st = cg.SegmentedState(C, P, ndof // (2 * P), b.dtype, b.device, max_iters, 180)
-
-    def A(u):
-        return system.op(u * free) * free
+    A = masked_operator(system.op, free)
 
     x = system.x0 * free
     r = b - A(x)
@@ -2586,10 +2608,105 @@ def launch_error(got, want):
     return worst_abs, worst_rel
 
 
+def band_operator_bytes(vals, cols, u):
+    """Bytes the band operator must move at these tables: each lane's
+    non-zero values (a value the free masks made zero need not be read),
+    the columns of K's structure once, u read and y written; no padding."""
+    nonzero = int((vals != 0).sum())
+    structure = int((cols >= 0).sum())
+    return nonzero * vals.element_size() + structure * 4 + 2 * u.numel() * u.element_size()
+
+
+def lanes_csr(vals, cols, n_dofs):
+    """The lanes' compacted bands as one block-diagonal CSR matrix (C n_dofs
+    square), for the library's sparse product on the same tables."""
+    C, slots = vals.shape[0], cols.shape[1]
+    by_row = cols.transpose(1, 2).reshape(-1, slots)[:n_dofs]  # (n_dofs, slots)
+    real = by_row >= 0
+    row = torch.arange(n_dofs, device=cols.device)[:, None].expand(n_dofs, slots)[real]
+    lane = torch.arange(C, device=cols.device)[:, None] * n_dofs
+    index = torch.stack([(row[None] + lane).reshape(-1), (by_row[real][None] + lane).reshape(-1)])
+    values = vals.transpose(2, 3).reshape(C, -1, slots)[:, :n_dofs][:, real].reshape(-1)
+    coo = torch.sparse_coo_tensor(index, values, (C * n_dofs, C * n_dofs), check_invariants=True)
+    return coo.coalesce().to_sparse_csr()
+
+
+def band_operator_entry(system, tables, m_real_p, band_hb, u):
+    """Phase 16 (a'): the band kernel on the loop's p against its plain
+    version and the dense band's product (the route it replaces, with the
+    loop's masks), timed in turns beside cuSPARSE's product on the same
+    tables. Returns the kernels line's entry (less the main path's
+    launches); raises where the kernel disagrees."""
+    from fea_tpu_torch.fem.banded import assemble_band
+    from fea_tpu_torch.fem.flatgroup import (
+        chunk_stiffness, dense_band_operator, flat_band_indices, flatten_tables)
+    from fea_tpu_torch.fem.solver import masked_operator
+    from fea_tpu_torch.ops import band
+
+    vals, cols = system.op.vals, system.op.cols
+    C, n_dofs = u.shape
+    P, Nb = tables[0].shape[:2]
+    coords, tris = flatten_tables(*tables[:5], 1)[:2]
+    young, poisson = (t.transpose(0, 1).reshape(C, -1) for t in tables[6:8])
+    Ke = chunk_stiffness(coords, tris, young, poisson)[2]
+    S = assemble_band(Ke, flat_band_indices(tables[1], m_real_p, Nb, band_hb), n_dofs, band_hb)
+    dense = masked_operator(dense_band_operator(S, band_hb), system.free)
+    csr = lanes_csr(vals, cols, n_dofs)
+    flat_u = u.reshape(-1)
+    out = {name: torch.empty_like(u) for name in ("kernel", "plain")}
+    band.band_matvec(vals, cols, u, out["kernel"])
+    band.band_matvec_reference(vals, cols, u, out["plain"])
+    want = {"plain": out["plain"], "dense": dense(u).clone(),
+            "library": torch.mv(csr, flat_u).reshape(C, n_dofs)}
+    torch.cuda.synchronize()
+    errs = {name: max_abs_err(out["kernel"], w) for name, w in want.items()}
+    span = float(want["dense"].max() - want["dense"].min())
+    ms = in_turns({
+        "kernel": lambda: band.band_matvec(vals, cols, u, out["kernel"]),
+        "plain": lambda: band.band_matvec_reference(vals, cols, u, out["plain"]),
+        "dense": lambda: dense(u),
+        "library": lambda: torch.mv(csr, flat_u),
+    }, 50)
+    nbytes = band_operator_bytes(vals, cols, u)
+    nonzero = int((vals != 0).sum())
+    bound, bound_by = bound_ms(nbytes, 2 * nonzero, F32_FLOPS)
+    structure = int((cols >= 0).sum())
+    log(f"phase 16: band_matvec: {structure} non-zeros a lane in K's structure ({nonzero / C:.0f} "
+        f"a lane after the free masks), {cols.shape[1]} slots a row, {n_dofs} rows; the dense "
+        f"band {S.numel() * S.element_size() / 1e9:.3f} GB")
+    log(f"phase 16: band_matvec: max abs err vs plain {errs['plain']:.3e}, vs the dense band "
+        f"{errs['dense']:.3e}, vs cuSPARSE {errs['library']:.3e} (span {span:.3e}, tolerance "
+        f"{BAND_KERNEL_REL} of it); kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+        f"dense band {ms['dense']:.4f} ms, cuSPARSE {ms['library']:.4f} ms, bound {bound:.4f} ms "
+        f"({bound_by}: {nbytes / 1e6:.3f} MB)")
+    if max(errs["plain"], errs["dense"]) > BAND_KERNEL_REL * span:
+        raise AssertionError(f"phase 16: the band kernel is off its plain versions: {errs}")
+    del S, Ke, csr
+    return {"name": "band_matvec", "route": "cuda", "source": BAND_SOURCE,
+            "replaces": BAND_REPLACES, "max_abs_err": max(errs["plain"], errs["dense"]),
+            "rel_err": max(errs["plain"], errs["dense"]) / span, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "dense_ms": ms["dense"], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": ms["library"], "nonzeros_a_lane": structure,
+            "slots": int(cols.shape[1]), "bound_bytes": nbytes}
+
+
+def coarse_product_time(pre, r):
+    """Phase 16: device ms of the preconditioner's coarse product by
+    Kc^-1, a batched product in torch (no kernel of the port), beside the
+    bound of its bytes: what is left of a body besides the kernels."""
+    vec = torch.randn((r.shape[0], pre.P, 3 * pre.n_coarse), dtype=r.dtype, device=r.device)
+    ms = in_turns({"coarse": lambda: torch.einsum("...pij,...pj->...pi", pre.Kc_inv, vec)}, 50)
+    nbytes = (pre.Kc_inv.numel() + 2 * vec.numel()) * r.element_size()
+    bound, bound_by = bound_ms(nbytes, 2 * pre.Kc_inv.numel(), F32_FLOPS)
+    log(f"phase 16: the coarse product by Kc^-1 {tuple(pre.Kc_inv.shape)}: {ms['coarse']:.4f} ms, "
+        f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB)")
+
+
 def phase_cg_loop(device, results):
-    """Phase 16: the CG loop's kernels on phase 9's chunk, and a datagen
-    run repeated through them. Returns the kernels line's entries (less the
-    main path's launches) and the routes' ms per body."""
+    """Phase 16: the CG loop's kernels and the band operator's on phase 9's
+    chunk, and a datagen run repeated through them. Returns the kernels
+    line's entries (less the main path's launches) and the routes' ms per
+    body."""
     from fea_tpu_torch.datagen.batched import (
         chunk_inputs, chunk_keywords, chunk_tables, dispatch_plate_group, unpack_plate_group)
     from fea_tpu_torch.fem import direct_solve
@@ -2629,9 +2746,11 @@ def phase_cg_loop(device, results):
         log(f"phase 16: {name}: max abs err vs plain {err:.3e} ({rel:.3e} of the span, tolerance "
             f"{CG_KERNEL_REL}); kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, bound "
             f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB)")
-    del st, a, b, mine, theirs
     if bad:
         raise AssertionError(f"phase 16: kernels off their plain versions: {bad}")
+    entries["band_matvec"] = band_operator_entry(system, tables, m_real_p, band_hb, st.p)
+    coarse_product_time(system.precondition, st.r)
+    del st, a, b, mine, theirs
 
     # (b) a body through the plain versions, the kernels and the kernels in a
     # graph, each route's whole chunk solve in turns
@@ -2684,8 +2803,9 @@ def phase_cg_loop(device, results):
             f"f64 direct solve (tolerance {CHUNK_DIRECT_REL})")
         if converged == 0 or worst > CHUNK_DIRECT_REL or not all(run["same"] for run in runs[name]):
             failures.append(name)
-    if per_body["kernels"] > CG_MAX_KERNELS:  # the graph's bodies are the same launches
-        failures.append(f"{per_body['kernels']:.1f} kernels per body")
+    for name in ("kernels", "graph"):  # the graph's bodies are the same launches
+        if per_body[name] > CG_MAX_KERNELS:
+            failures.append(f"{name}: {per_body[name]:.1f} kernels per body")
     # the routes lane by lane, on the lanes that end under a residual of
     # 1e-4 under both (a lane near the f32 floor moves its iteration count
     # under any change of the order of its sums)
@@ -2745,6 +2865,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    from fea_tpu_torch.ops.band import build as build_band
     from fea_tpu_torch.ops.cg import build as build_cg
     from fea_tpu_torch.ops.flash_attention import build as build_flash
     from fea_tpu_torch.ops.fused_norm import build as build_group_norm
@@ -2755,7 +2876,7 @@ def main():
     device = cuda_device()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    builds = [build_flash, build_group_norm, build_cg]
+    builds = [build_flash, build_group_norm, build_cg, build_band]
     earlier = None
     if args.against:
         earlier = load_ops(args.against)
@@ -2765,7 +2886,7 @@ def main():
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, started together
         libs = list(pool.map(lambda build: build(), builds))
     log(f"set-up: kernels built in {time.perf_counter() - t0:.1f} s")
-    for lib in libs[:3]:
+    for lib in libs[:4]:
         log(f"  {lib}")
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:

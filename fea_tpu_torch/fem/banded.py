@@ -12,7 +12,11 @@ K·u as a *dense banded* product instead of element gathers:
     Every K entry with |i-j| <= hb has a slot (W = 2*hb + R), so
     S·window == K·u exactly;
   * every CG iteration: y = einsum('brw,bw->br', S, windows(u)) — one
-    batched dense product with a static-index window gather.
+    batched dense product with a static-index window gather. That is the
+    CPU's route; on the card the flat chunk compacts S once per solve to
+    its non-zeros (`band_tables`, sliced ELL over planar rows) and the CG
+    loop reads only those (`ops.band.band_matvec`; plain version
+    `band_matvec_reference`).
 
 The permutation lives inside the solver scaffold: conditions are built on
 the original mesh, per-condition arrays are permuted on the host at
@@ -148,6 +152,66 @@ def banded_matvec(S, x, win_idx, hb: int):
     Xw = x_pad[..., win_idx]  # (..., nblk, W)
     y = torch.einsum("...brw,...bw->...br", S, Xw)
     return y.flatten(-2)
+
+
+# Rows of a slice of the compacted band: the rows a warp of the kernel
+# (csrc/band_matvec.cu) walks together, one thread a row.
+ELL_ROWS = 32
+
+
+def band_tables(S, band_idx, hb: int, free=None):
+    """The band's non-zeros as `ops.band.band_matvec` reads them: K's
+    structure marked once from the shared plan `band_idx` (36, M) (every
+    lane's element blocks land in the same slots; the repeats of a slot,
+    the ghost triangles' at node 0 among them, merge), each lane's values
+    gathered from S (C, nblk, R, W).
+
+    Rows and columns are planar dofs (comp * n + node for n = n_dofs / 2).
+    A row's slots hold its columns in ascending interleaved order, padded
+    with column -1 and value 0 to the widest row's count `slots` (one host
+    read). The layout is sliced ELL: slices of ELL_ROWS rows, slot-major
+    within a slice, so that the rows of a warp load neighbouring words.
+    With the planar (C, n_dofs) mask `free` (1 free, 0 fixed), each value
+    is multiplied by its row's and its column's mask, exactly, so the
+    product is free * K (free * u).
+
+    Returns vals (C, n_slices, slots, ELL_ROWS) in S's dtype and cols
+    (n_slices, slots, ELL_ROWS) int32."""
+    nblk, R, W = S.shape[-3:]
+    n_dofs = nblk * R
+    n = n_dofs // 2
+    slot = torch.unique(band_idx.reshape(-1).to(torch.int64))  # by row, then column
+    row = torch.div(slot, W, rounding_mode="floor")
+    col = torch.div(row, R, rounding_mode="floor") * R + slot - row * W - hb
+    counts = torch.bincount(row, minlength=n_dofs)
+    slots = int(counts.max())
+    first = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(len(slot), device=slot.device) - first[row]
+    prow = (row & 1) * n + (row >> 1)
+    pcol = (col & 1) * n + (col >> 1)
+    n_slices = -(-n_dofs // ELL_ROWS)
+    ell = (torch.div(prow, ELL_ROWS, rounding_mode="floor") * slots + pos) * ELL_ROWS \
+        + prow % ELL_ROWS
+    cols = torch.full((n_slices * slots * ELL_ROWS,), -1, dtype=torch.int32, device=S.device)
+    cols[ell] = pcol.to(torch.int32)
+    values = S.flatten(-3)[..., slot]
+    if free is not None:
+        values = values * free[..., prow] * free[..., pcol]
+    vals = S.new_zeros(S.shape[:-3] + (n_slices * slots * ELL_ROWS,))
+    vals[..., ell] = values
+    shape = (n_slices, slots, ELL_ROWS)
+    return vals.reshape(S.shape[:-3] + shape), cols.reshape(shape)
+
+
+def band_matvec_reference(vals, cols, u, y):
+    """y = the compacted band (`band_tables`) times u, on planar (C,
+    n_dofs) vectors: the plain version of `ops.band.band_matvec`, as
+    torch gathers and a sum. A pad's column -1 reads the zero appended to
+    u."""
+    C, n_dofs = u.shape
+    padded = torch.cat([u, u.new_zeros((C, 1))], dim=-1)
+    rows = (vals * padded[:, cols]).sum(dim=-2)  # (C, n_slices, ELL_ROWS)
+    y.copy_(rows.reshape(C, -1)[:, :n_dofs])
 
 
 def band_block_diagonal(S, hb: int, block: int):

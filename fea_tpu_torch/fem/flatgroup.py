@@ -20,7 +20,9 @@ offsets of the per-plate tables the solvers already hold on the device):
     aggregate's real nodes, a fixed order) where fea_tpu uses segment_sum.
 
 The operator is the incidence gather-sum (fem/assembly.py) or, for
-RCM-permuted plates, the dense band (fem/banded.py). Every sum of the
+RCM-permuted plates, the band (fem/banded.py): on the card its non-zeros
+through the kernel of `ops.band` (`BandOperator`), on the CPU the dense
+band's batched product. Every sum of the
 set-up goes through `assembly.scatter_sum`, so a chunk repeats bit for
 bit on the card. fea_tpu's band-block Jacobi smoother is an argument
 here, off by default (`chunk_system`'s `band_block`).
@@ -35,13 +37,14 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..ops import cg
+from ..ops import band, cg
 from .assembly import apply_element_stiffness_planar, element_dof_indices, scatter_sum
 from .banded import (
     BAND_R,
     assemble_band,
     band_assembly_indices_dev,
     band_block_diagonal,
+    band_tables,
     banded_matvec,
     gram_apply,
     interleaved_to_planar,
@@ -224,6 +227,71 @@ class ChunkPreconditioner:
         return z
 
 
+class BandOperator:
+    """The chunk's band operator on the card, y = free * K (free * u) on
+    planar (C, 2*P*Nb) vectors, through the band's non-zeros (`vals`,
+    `cols`: `banded.band_tables`, the free masks folded into the values)
+    and `ops.band.band_matvec`. It applies the free masks itself
+    (`masks_free`), so the CG loop does not mask again. y is one buffer,
+    allocated here and written by each call (a captured block replays on
+    the same memory): the result of a call lasts until the next call."""
+
+    masks_free = True
+
+    def __init__(self, vals, cols, n_dofs: int):
+        self.vals, self.cols = vals.contiguous(), cols.contiguous()
+        self.y = vals.new_empty((vals.shape[0], n_dofs))
+
+    def __call__(self, u):
+        band.band_matvec(self.vals, self.cols, u, self.y)
+        return self.y
+
+
+def chunk_stiffness(coords, triangles, young, poisson):
+    """The lanes' element stiffness: D (3, 3, C, PM), the shared B (3, 6,
+    PM) and Ke (C, 6, 6, PM), element-minor, from the flat tables and the
+    (C, PM) materials."""
+    D = plane_strain_stiffness_em(young, poisson)  # (3,3,C,PM)
+    B, area = triangle_geometry(coords, triangles)  # shared (3,6,PM), (PM,)
+    DB = torch.einsum("ijcm,jkm->ikcm", D, B)
+    return D, B, torch.einsum("jim,jkcm->cikm", B, DB) * area
+
+
+def flat_band_indices(triangles_p, m_real_p, n_nodes: int, band_hb: int):
+    """The chunk's band plan (36, P*Mb): each plate's (band_assembly_indices_dev)
+    offset by its row block. Rows are plate-contiguous in the interleaved
+    flat dof order, so the flat system's band is the block-diagonal stack
+    of the per-plate bands."""
+    P, Mb = triangles_p.shape[:2]
+    w_band = 2 * band_hb + BAND_R
+    band_idx_p = band_assembly_indices_dev(triangles_p, m_real_p, band_hb)  # (P,36,Mb)
+    offsets = torch.arange(P, device=triangles_p.device)[:, None, None] * (2 * n_nodes * w_band)
+    return (band_idx_p + offsets).transpose(0, 1).reshape(36, P * Mb)
+
+
+def dense_band_operator(S, band_hb: int):
+    """K u on planar (C, 2*PN) vectors through the dense band S (C, nblk,
+    R, W): the window gather and the batched product of
+    `banded.banded_matvec` between the planar / interleaved transposes."""
+    PN = S.shape[-3] * S.shape[-2] // 2
+    win_idx = window_index(2 * PN, band_hb, device=S.device)
+
+    def op(u):
+        yi = banded_matvec(S, planar_to_interleaved(u, PN), win_idx, band_hb)
+        return interleaved_to_planar(yi, PN)
+
+    return op
+
+
+def band_operator(S, band_idx, band_hb: int, free):
+    """The chunk's band operator: on the card `BandOperator` over S's
+    non-zeros (free * K (free * u)); on the CPU the dense band's product
+    (K u, the loop masks it), fea_tpu's route bit for bit as before."""
+    if S.is_cuda:
+        return BandOperator(*band_tables(S, band_idx, band_hb, free), free.shape[-1])
+    return dense_band_operator(S, band_hb)
+
+
 def _synchronize(device) -> None:
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
@@ -231,7 +299,8 @@ def _synchronize(device) -> None:
 
 class ChunkSystem(NamedTuple):
     """A chunk's CG system after set-up, every per-solve array with the
-    leading lane axis C: `op` (K u) and `precondition` (M^-1 r) on planar
+    leading lane axis C: `op` (K u; on the card's band route free * K
+    (free * u), `BandOperator`) and `precondition` (M^-1 r) on planar
     (C, 2*P*Nb) vectors, the right-hand side `b`, the diagonal `diag`, the
     free-dof mask `free` and the warm start `x0` in that layout, and what
     the packed rows need (B, D, the element dofs)."""
@@ -266,7 +335,8 @@ def chunk_system(
     band_block: int = 0,
 ) -> ChunkSystem:
     """The per-solve set-up of a chunk: element stiffness, the operator
-    (band or incidence), the block-Jacobi and coarse preconditioner.
+    (band or incidence; the band's route by device, `band_operator`), the
+    block-Jacobi and coarse preconditioner.
 
     With the band (`band_hb` > 0), `band_block` > 0 takes K's diagonal
     blocks of that many dofs from the band for the smoother (band-block
@@ -279,7 +349,6 @@ def chunk_system(
     C = young_pc.shape[1]
     PN = P * Nb
     PM = P * Mb
-    device = coords_p.device
     coords, triangles, slots, agg_ids, arms = flatten_tables(
         coords_p, triangles_p, slots_p, agg_p, arms_p, n_coarse
     )
@@ -293,10 +362,7 @@ def chunk_system(
     loads = loads_pc.transpose(0, 1).reshape(C, PN, 2)
     x0 = x0_pc.transpose(0, 1).reshape(C, PN, 2)
 
-    D = plane_strain_stiffness_em(young, poisson)  # (3,3,C,PM)
-    B, area = triangle_geometry(coords, triangles)  # shared (3,6,PM), (PM,)
-    DB = torch.einsum("ijcm,jkm->ikcm", D, B)
-    Ke = torch.einsum("jim,jkcm->cikm", B, DB) * area  # (C,6,6,PM)
+    D, B, Ke = chunk_stiffness(coords, triangles, young, poisson)
     diag = extract_diagonal(Ke, triangles, PN)  # (C,PN,2)
     free_planar = torch.cat([free, free], dim=-1)  # (C, 2PN)
     if band_block > 0:
@@ -307,21 +373,8 @@ def chunk_system(
             band_block = 0
     gram_factor = None
     if band_hb > 0:
-        # per-plate band indices address a (2*Nb*W,) plate-local buffer;
-        # offset by each plate's row block (rows are plate-contiguous in
-        # the interleaved flat dof order, so the flat system's band is the
-        # block-diagonal stack of the per-plate bands)
-        w_band = 2 * band_hb + BAND_R
-        band_idx_p = band_assembly_indices_dev(triangles_p, m_real_p, band_hb)  # (P,36,Mb)
-        offsets = torch.arange(P, device=device)[:, None, None] * (2 * Nb * w_band)
-        band_idx = (band_idx_p + offsets).transpose(0, 1).reshape(36, PM)
-        win_idx = window_index(2 * PN, band_hb, device=device)
+        band_idx = flat_band_indices(triangles_p, m_real_p, Nb, band_hb)
         S = assemble_band(Ke, band_idx, 2 * PN, band_hb)  # (C, nblk, R, W)
-
-        def op(u):
-            yi = banded_matvec(S, planar_to_interleaved(u, PN), win_idx, band_hb)
-            return interleaved_to_planar(yi, PN)
-
         if band_block > 0:
             # Band-block Jacobi: blocks may straddle plates, harmlessly
             # (plates share no elements, so such a block is itself block
@@ -330,6 +383,7 @@ def chunk_system(
             free_i = planar_to_interleaved(free_planar, PN).reshape(C, -1, band_block)
             blocks = band_block_diagonal(S, band_hb, band_block)
             gram_factor = spd_block_inv_factor(blocks, free_i).to(torch.float32)
+        op = band_operator(S, band_idx, band_hb, free_planar)  # S is freed with this frame on the card
     else:
         op = partial(apply_element_stiffness_planar, Ke, dof_idx, slots)
     block_inv = None

@@ -251,6 +251,15 @@ class ScalarJacobi:
         return self.inv_diag * r
 
 
+def masked_operator(operator, free):
+    """The CG loop's operator, u -> free * K (free * u): `operator` as it
+    is where it applies the free masks itself (`masks_free`, as the flat
+    chunk's band operator on the card does), else between the two masks."""
+    if getattr(operator, "masks_free", False):
+        return operator
+    return lambda u: operator(u * free) * free
+
+
 def segmented_body(state, A, precondition):
     """One body of the segmented loop on `state` (an `ops.cg.SegmentedState`)
     in place: one iteration of every lane whose condition holds, the other
@@ -292,8 +301,10 @@ def pcg_solve_segmented(
     within each component block — so every segment reduction is a reshape
     to (L, 2, n_seg, Ns) and a sum, and every scalar broadcast is the
     inverse reshape. `operator` takes and returns vectors of the callers'
-    shape. The loop runs on the lanes flattened to one axis L, so a given
-    `precondition` takes (L, ndof) vectors, is callable, and has
+    shape; the loop masks its input and output with `free_mask` unless it
+    applies the masks itself (`masked_operator`). The loop runs on the
+    lanes flattened to one axis L, so a given `precondition` takes (L,
+    ndof) vectors, is callable, and has
     `ScalarJacobi`'s `parts` and `finish` (the flat chunk's
     `flatgroup.ChunkPreconditioner`); the default is scalar Jacobi on
     `diag`.
@@ -309,8 +320,10 @@ def pcg_solve_segmented(
     reads whether any lane runs once per block of `check_every` bodies.
 
     A body is the five launches of `ops.cg` around the operator (and the
-    preconditioner's coarse matvec), on the state's tensors in place. On a
-    CUDA device they are the hand-written kernels, and a block of
+    preconditioner's coarse matvec), on the state's tensors in place (the
+    operator's own kernel, where it has one, loads at the residual before
+    the loop, outside any capture). On a CUDA device they are the
+    hand-written kernels, and a block of
     `check_every` bodies is captured once per solve as a CUDA graph and
     replayed; on the CPU they are the plain torch versions, run eagerly.
 
@@ -336,8 +349,10 @@ def pcg_solve_segmented(
     def flat(u):  # the callers' (..., ndof), or one vector for every lane -> (L, ndof)
         return u.expand(lead + (ndof,)).reshape(L, ndof)
 
+    masked = masked_operator(operator, free)
+
     def A(u):
-        return flat(operator(lanes(u) * free) * free)
+        return flat(masked(lanes(u)))
 
     if precondition is None:
         precondition = ScalarJacobi(flat(free / torch.where(diag.abs() > 1e-30, diag, 1.0)))

@@ -176,9 +176,9 @@ def _check(device, dtype, named):
     None for `dtype`, shape)}; a None tensor is skipped) lies on `device`,
     contiguous, of its dtype and shape."""
     if device.type != "cuda":
-        raise ValueError(f"the CG kernels take CUDA tensors; got {device}")
+        raise ValueError(f"the CG loop's kernels take CUDA tensors; got {device}")
     if dtype not in DTYPES:
-        raise TypeError(f"the CG kernels take float32 or float64; got {dtype}")
+        raise TypeError(f"the CG loop's kernels take float32 or float64; got {dtype}")
     for name, (t, dt, shape) in named.items():
         if t is None:
             continue
@@ -186,7 +186,7 @@ def _check(device, dtype, named):
         if t.device != device or t.dtype != want or tuple(t.shape) != tuple(shape) \
                 or not t.is_contiguous():
             raise ValueError(
-                f"{name}: the CG kernels take a contiguous {want} {tuple(shape)} on {device}; got "
+                f"{name}: the CG loop's kernels take a contiguous {want} {tuple(shape)} on {device}; got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
                 + ("" if t.is_contiguous() else " (not contiguous)"))
 
