@@ -168,6 +168,12 @@ Phase 16: the CG loop's kernels (csrc/cg_segmented.cu) and the band
          on the lanes that both end under a residual of 1e-4. Blocks of 8,
          16 and 32 bodies between host reads: ms, host reads, the same rows.
          Two datagen runs of 2 plates from one seed: the same bytes.
+         Under `--against TREE` the other checkout's prolong_dots and band
+         kernel are timed in the same turns (`earlier`): its z bit for bit
+         this kernel's, its band product bit for bit this one's.
+         prolong_dots prints its TB/s over the bytes it moves (the bound's),
+         the band kernel over the bytes it is modelled to move (each slice
+         up to its widest row) beside the bound's.
 
 Kernel times are device times: CUDA events around calls that the host
 queued behind a device-side wait, each function timed in turns.
@@ -192,6 +198,7 @@ import copy
 import functools
 import importlib
 import importlib.util
+import inspect
 import itertools
 import json
 import math
@@ -277,16 +284,36 @@ def nvidia_smi():
     ).stdout.strip()
 
 
-def load_ops(tree):
-    """The `fea_tpu_torch.ops` package of another checkout, as the module
-    `earlier_ops`; its kernels build into that checkout's _build."""
-    path = Path(tree).resolve() / "fea_tpu_torch" / "ops"
+EARLIER = "earlier_fea_tpu_torch"  # the package name another checkout's port loads under
+
+
+def load_ops(tree, package=EARLIER):
+    """The `fea_tpu_torch.ops` package of another checkout: that checkout's
+    whole `fea_tpu_torch` loaded as the package `package`, so that each of
+    its modules imports its own siblings and binds its own kernels' entry
+    points; its kernels build into that checkout's _build."""
+    path = Path(tree).resolve() / "fea_tpu_torch"
     spec = importlib.util.spec_from_file_location(
-        "earlier_ops", path / "__init__.py", submodule_search_locations=[str(path)])
+        package, path / "__init__.py", submodule_search_locations=[str(path)])
     module = importlib.util.module_from_spec(spec)
-    sys.modules["earlier_ops"] = module
+    sys.modules[package] = module
     spec.loader.exec_module(module)
-    return module
+    return importlib.import_module(f"{package}.ops")
+
+
+def earlier_module(earlier, name):
+    """The module `name` of the ops package `earlier` (`load_ops`)."""
+    return importlib.import_module(f"{earlier.__name__}.{name}")
+
+
+def earlier_band(earlier):
+    """The band kernel of the ops package `earlier` (`load_ops`), as fn(vals,
+    cols, u, y, widths): that checkout's own wrapper, given the width
+    table where its signature takes one."""
+    band_matvec = earlier_module(earlier, "band").band_matvec
+    if "widths" in inspect.signature(band_matvec).parameters:
+        return band_matvec
+    return lambda vals, cols, u, y, widths: band_matvec(vals, cols, u, y)
 
 
 def loop_wrappers():
@@ -2530,6 +2557,15 @@ def chunk_state(system, P, tol, max_iters, bodies):
     return st, A
 
 
+def prolong_dots_bytes(L, P, Ns, NA, item):
+    """Bytes prolong_dots must move with the state: zj, free and r read and
+    z written (L, 2 P Ns), zc (L, NA, 3), agg and arms (P Ns) read once;
+    rz, best, stall, run read and rz, r2, best, beta, stall written per
+    segment; the lane flag and k per lane."""
+    V, PN, S = L * 2 * P * Ns * item, P * Ns, L * P
+    return 4 * V + L * NA * 3 * item + PN * (2 * item + 4) + S * (6 * item + 9) + L * 9
+
+
 def cg_launches(st, A, pre):
     """{name: (run(state, fn) -> outputs, kernel wrapper, plain version,
     (bytes, operations) the launch must move and do at this state)}: each
@@ -2585,8 +2621,7 @@ def cg_launches(st, A, pre):
                             (4 * V + NA * W * 4 + members * 2 * item + zc_bytes,
                              3 * C * ndof + 6 * C * members)),
         "prolong_dots": (prolong, cg.prolong_dots, cg.prolong_dots_reference,
-                         (4 * V + zc_bytes + PN * (2 * item + 4) + S * (6 * item + 9) + C * 9,
-                          8 * C * ndof)),
+                         (prolong_dots_bytes(C, st.P, st.Ns, NA, item), 8 * C * ndof)),
         "cg_update_p": (update_p, cg.cg_update_p, cg.cg_update_p_reference,
                         (3 * V * segs + S * (item + 1) + C, 2 * C * ndof * segs)),
     }
@@ -2617,6 +2652,15 @@ def band_operator_bytes(vals, cols, u):
     return nonzero * vals.element_size() + structure * 4 + 2 * u.numel() * u.element_size()
 
 
+def band_staged_bytes(vals, cols, widths, u):
+    """Bytes the band kernel is modelled to move (not measured): each
+    slice's tables up to its widest row (its columns once, each lane's
+    values), the width table, u once (assuming its gathers hit L2) and y."""
+    C, item = vals.shape[0], vals.element_size()
+    staged = int(widths.sum()) * cols.shape[2] * (4 + C * item)
+    return staged + widths.numel() * 4 + 2 * u.numel() * u.element_size()
+
+
 def lanes_csr(vals, cols, n_dofs):
     """The lanes' compacted bands as one block-diagonal CSR matrix (C n_dofs
     square), for the library's sparse product on the same tables."""
@@ -2631,11 +2675,12 @@ def lanes_csr(vals, cols, n_dofs):
     return coo.coalesce().to_sparse_csr()
 
 
-def band_operator_entry(system, tables, m_real_p, band_hb, u):
+def band_operator_entry(system, tables, m_real_p, band_hb, u, earlier=None):
     """Phase 16 (a'): the band kernel on the loop's p against its plain
     version and the dense band's product (the route it replaces, with the
     loop's masks), timed in turns beside cuSPARSE's product on the same
-    tables. Returns the kernels line's entry (less the main path's
+    tables and the earlier checkout's kernel `earlier` (fn(vals, cols, u,
+    y, widths)) where given. Returns the kernels line's entry (less the main path's
     launches); raises where the kernel disagrees."""
     from fea_tpu_torch.fem.banded import assemble_band
     from fea_tpu_torch.fem.flatgroup import (
@@ -2643,7 +2688,7 @@ def band_operator_entry(system, tables, m_real_p, band_hb, u):
     from fea_tpu_torch.fem.solver import masked_operator
     from fea_tpu_torch.ops import band
 
-    vals, cols = system.op.vals, system.op.cols
+    vals, cols, widths = system.op.vals, system.op.cols, system.op.widths
     C, n_dofs = u.shape
     P, Nb = tables[0].shape[:2]
     coords, tris = flatten_tables(*tables[:5], 1)[:2]
@@ -2653,21 +2698,30 @@ def band_operator_entry(system, tables, m_real_p, band_hb, u):
     dense = masked_operator(dense_band_operator(S, band_hb), system.free)
     csr = lanes_csr(vals, cols, n_dofs)
     flat_u = u.reshape(-1)
-    out = {name: torch.empty_like(u) for name in ("kernel", "plain")}
-    band.band_matvec(vals, cols, u, out["kernel"])
+    out = {name: torch.empty_like(u) for name in ("kernel", "plain", "earlier")}
+    band.band_matvec(vals, cols, u, out["kernel"], widths)
     band.band_matvec_reference(vals, cols, u, out["plain"])
     want = {"plain": out["plain"], "dense": dense(u).clone(),
             "library": torch.mv(csr, flat_u).reshape(C, n_dofs)}
     torch.cuda.synchronize()
     errs = {name: max_abs_err(out["kernel"], w) for name, w in want.items()}
     span = float(want["dense"].max() - want["dense"].min())
-    ms = in_turns({
-        "kernel": lambda: band.band_matvec(vals, cols, u, out["kernel"]),
+    fns = {
+        "kernel": lambda: band.band_matvec(vals, cols, u, out["kernel"], widths),
         "plain": lambda: band.band_matvec_reference(vals, cols, u, out["plain"]),
         "dense": lambda: dense(u),
         "library": lambda: torch.mv(csr, flat_u),
-    }, 50)
+    }
+    if earlier is not None:
+        earlier(vals, cols, u, out["earlier"], widths)
+        torch.cuda.synchronize()
+        if not torch.equal(out["earlier"], out["kernel"]):
+            raise AssertionError("phase 16: the band kernel is not the earlier kernel bit for bit: "
+                                 f"{max_abs_err(out['kernel'], out['earlier']):.3e} apart")
+        fns["earlier"] = lambda: earlier(vals, cols, u, out["earlier"], widths)
+    ms = in_turns(fns, 50)
     nbytes = band_operator_bytes(vals, cols, u)
+    staged = band_staged_bytes(vals, cols, widths, u)
     nonzero = int((vals != 0).sum())
     bound, bound_by = bound_ms(nbytes, 2 * nonzero, F32_FLOPS)
     structure = int((cols >= 0).sum())
@@ -2678,7 +2732,13 @@ def band_operator_entry(system, tables, m_real_p, band_hb, u):
         f"{errs['dense']:.3e}, vs cuSPARSE {errs['library']:.3e} (span {span:.3e}, tolerance "
         f"{BAND_KERNEL_REL} of it); kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
         f"dense band {ms['dense']:.4f} ms, cuSPARSE {ms['library']:.4f} ms, bound {bound:.4f} ms "
-        f"({bound_by}: {nbytes / 1e6:.3f} MB)")
+        f"({bound_by}: {nbytes / 1e6:.3f} MB)"
+        + (f", earlier {ms['earlier']:.4f} ms (bit for bit this kernel)" if earlier else ""))
+    log(f"phase 16: band_matvec: {staged / 1e6:.3f} MB modelled to be read and written (the "
+        f"slices up to their widest row: {int(widths.sum())} slots of {widths.numel()} slices, "
+        f"against {cols.shape[0] * cols.shape[1]} in the table; u once, from L2), "
+        f"{staged / ms['kernel'] / 1e9:.3f} TB/s over them; "
+        f"over the bound's {nbytes / 1e6:.3f} MB {nbytes / ms['kernel'] / 1e9:.3f} TB/s")
     if max(errs["plain"], errs["dense"]) > BAND_KERNEL_REL * span:
         raise AssertionError(f"phase 16: the band kernel is off its plain versions: {errs}")
     del S, Ke, csr
@@ -2687,7 +2747,8 @@ def band_operator_entry(system, tables, m_real_p, band_hb, u):
             "rel_err": max(errs["plain"], errs["dense"]) / span, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "dense_ms": ms["dense"], "bound_ms": bound,
             "bound_by": bound_by, "library_ms": ms["library"], "nonzeros_a_lane": structure,
-            "slots": int(cols.shape[1]), "bound_bytes": nbytes}
+            "slots": int(cols.shape[1]), "bound_bytes": nbytes,
+            **({"earlier_ms": ms["earlier"]} if earlier else {})}
 
 
 def coarse_product_time(pre, r):
@@ -2702,16 +2763,25 @@ def coarse_product_time(pre, r):
         f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB)")
 
 
-def phase_cg_loop(device, results):
+def launch_floor():
+    """Phase 16: device ms of a kernel that does nothing (`torch.cuda._sleep(0)`),
+    timed as the kernels are: what any one launch costs at the least."""
+    ms = in_turns({"empty": lambda: torch.cuda._sleep(0)}, 50)["empty"]
+    log(f"phase 16: an empty kernel, timed as the kernels are: {ms:.4f} ms")
+
+
+def phase_cg_loop(device, results, earlier=None):
     """Phase 16: the CG loop's kernels and the band operator's on phase 9's
-    chunk, and a datagen run repeated through them. Returns the kernels
-    line's entries (less the main path's launches) and the routes' ms per
-    body."""
+    chunk (beside the kernels of `earlier`, the ops package of another
+    checkout, where given), and a datagen run repeated through them.
+    Returns the kernels line's entries (less the main path's launches) and
+    the routes' ms per body."""
     from fea_tpu_torch.datagen.batched import (
         chunk_inputs, chunk_keywords, chunk_tables, dispatch_plate_group, unpack_plate_group)
     from fea_tpu_torch.fem import direct_solve
     from fea_tpu_torch.fem.flatgroup import chunk_system
     from fea_tpu_torch.fem.solver import CHECK_EVERY
+    from fea_tpu_torch.ops import cg
 
     t0 = time.perf_counter()
     chunk = chunk_payloads(device, banded=True)
@@ -2726,31 +2796,52 @@ def phase_cg_loop(device, results):
     st, A = chunk_state(system, P, kw["tol"], kw["max_iters"], CG_STATE_BODIES)
     log(f"phase 16: phase 9's chunk, {P} plates x {C} conditions, band hb {s0.band_hb}, "
         f"{st.x.shape[1]} dofs a lane, member table {tuple(system.precondition.members.shape)}, "
-        f"{st.groups} blocks a segment in the reductions; set-up {time.perf_counter() - t0:.1f} s")
+        f"{st.groups} blocks a segment in cg_alpha's reduction, a cluster of "
+        f"{cg.prolong_plan(st.Ns)[0]} in prolong_dots'; set-up {time.perf_counter() - t0:.1f} s")
 
-    # (a) each launch against its plain version, then timed beside it
+    # (a) each launch against its plain version (and prolong_dots against
+    # the earlier checkout's), then timed beside it
     entries, bad = {}, []
     for name, (run, kernel, plain, (nbytes, ops)) in cg_launches(st, A, system.precondition).items():
         mine, theirs = st.clone(), st.clone()
-        err, rel = launch_error(run(mine, kernel), run(theirs, plain))
-        torch.cuda.synchronize()
+        got = run(mine, kernel)
+        err, rel = launch_error(got, run(theirs, plain))
         if rel > CG_KERNEL_REL:
             bad.append(name)
-        a, b = st.clone(), st.clone()
-        ms = in_turns({"kernel": lambda: run(a, kernel), "plain": lambda: run(b, plain)}, 50)
+        a, b, c = st.clone(), st.clone(), st.clone()
+        fns = {"kernel": lambda: run(a, kernel), "plain": lambda: run(b, plain)}
+        if earlier is not None and name == "prolong_dots":
+            other = earlier_module(earlier, "cg").prolong_dots
+            if not torch.equal(run(st.clone(), other)["z"], got["z"]):
+                bad.append("prolong_dots: z is not the earlier kernel's")
+            fns["earlier"] = lambda: run(c, other)
+        torch.cuda.synchronize()
+        ms = in_turns(fns, 50)
         bound, bound_by = bound_ms(nbytes, ops, F32_FLOPS)
         entries[name] = {"name": name, "route": "cuda", "source": CG_SOURCE,
                          "replaces": CG_REPLACES[name], "max_abs_err": err, "rel_err": rel,
                          "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
                          "bound_by": bound_by, "library_ms": None}
-        log(f"phase 16: {name}: max abs err vs plain {err:.3e} ({rel:.3e} of the span, tolerance "
-            f"{CG_KERNEL_REL}); kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, bound "
-            f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB)")
+        line = (f"phase 16: {name}: max abs err vs plain {err:.3e} ({rel:.3e} of the span, "
+                f"tolerance {CG_KERNEL_REL}); kernel {ms['kernel']:.4f} ms, plain "
+                f"{ms['plain']:.4f} ms, bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB)")
+        if name == "prolong_dots":
+            cluster, span = cg.prolong_plan(st.Ns)
+            line += (f"; {nbytes / ms['kernel'] / 1e9:.3f} TB/s over the bytes it reads and "
+                     f"writes (each once: the bound's); clusters of {cluster} blocks of {span} "
+                     f"nodes")
+        if "earlier" in ms:
+            entries[name]["earlier_ms"] = ms["earlier"]
+            line += f"; earlier {ms['earlier']:.4f} ms, its z bit for bit this kernel's"
+        log(line)
     if bad:
         raise AssertionError(f"phase 16: kernels off their plain versions: {bad}")
-    entries["band_matvec"] = band_operator_entry(system, tables, m_real_p, band_hb, st.p)
+    entries["band_matvec"] = band_operator_entry(
+        system, tables, m_real_p, band_hb, st.p,
+        None if earlier is None else earlier_band(earlier))
     coarse_product_time(system.precondition, st.r)
-    del st, a, b, mine, theirs
+    launch_floor()
+    del st, a, b, c, mine, theirs
 
     # (b) a body through the plain versions, the kernels and the kernels in a
     # graph, each route's whole chunk solve in turns
@@ -2880,8 +2971,8 @@ def main():
     earlier = None
     if args.against:
         earlier = load_ops(args.against)
-        builds += [importlib.import_module(f"earlier_ops.{name}").build
-                   for name in ("flash_attention", "fused_norm")]
+        builds += [earlier_module(earlier, name).build
+                   for name in ("flash_attention", "fused_norm", "cg", "band")]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, started together
         libs = list(pool.map(lambda build: build(), builds))
@@ -2916,7 +3007,7 @@ def main():
                 elif n == 15:
                     phase_variants(device, results, plates_per_hour)
                 elif n == 16:
-                    phase_cg_loop(device, results)
+                    phase_cg_loop(device, results, earlier)
                 else:
                     raise SystemExit(f"--only takes the phases 1 and 9 to 16, not {n}")
                 log(f"phase {n} done in {time.perf_counter() - t0:.1f} s")
@@ -2975,7 +3066,7 @@ def main():
         phase_variants(device, results, plates_per_hour)
         log(f"phase 15 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        cg_entries, _ = phase_cg_loop(device, results)
+        cg_entries, _ = phase_cg_loop(device, results, earlier)
         log(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)

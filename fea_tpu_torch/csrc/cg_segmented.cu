@@ -28,15 +28,25 @@
 // under the card's operations per byte; the restriction gathers each node
 // once through the member table.
 //
-// Design (a simple kernel that is right first):
-//   - reductions per (lane, segment): G blocks per segment each sum a slice
+// Design:
+//   - alpha's reduction per (lane, segment): G blocks per segment each sum a slice
 //     of the segment's nodes (both components) and write one partial, by a
 //     fixed tree in shared memory; the last block of the segment to finish
 //     (an atomic ticket per segment, reset to 0 by that block, so nothing is
 //     zeroed between launches or CUDA graph replays) sums the G partials in
-//     index order and runs the scalar epilogue (alpha; or beta, rz, r2,
-//     best_r2, stall and k). No floating-point atomics: a chunk repeats bit
-//     for bit;
+//     index order and runs the scalar epilogue (alpha). No floating-point
+//     atomics: a chunk repeats bit for bit;
+//   - prolong_dots (the costliest launch of a body) reduces each segment
+//     inside one thread-block cluster instead: a block per contiguous range
+//     of the segment's nodes (ops/cg.py prolong_plan), 16-byte loads of a
+//     thread's consecutive nodes, a fixed shuffle tree per warp, then the
+//     warps in order; each block stores its sums into rank 0's shared
+//     memory (distributed shared memory) and arrives on rank 0's mbarrier,
+//     and rank 0 alone waits, sums them in rank order and runs the epilogue
+//     (beta, rz, r2, best_r2, stall and k, its scalars read at the start of
+//     the launch). No block reads another's memory, so the others leave at
+//     once; rank 0 leaves after every store into it has landed. No partial,
+//     ticket, fence or atomic goes through device memory;
 //   - products and sums are rounded one at a time (__fmul_rn / __fadd_rn,
 //     no FMA contraction), as the torch ops they replace round them, so the
 //     elementwise updates and the preconditioner's terms equal the plain
@@ -206,73 +216,229 @@ __global__ void __launch_bounds__(THREADS) jacobi_restrict_kernel(
   }
 }
 
+// values of T in a 16-byte load
+template <typename T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+// V consecutive values at p (16 bytes, or one value for V = 1) in one access
+template <typename T, int V>
+struct Vec;
+template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<double, 2> { using type = double2; };
+template <> struct Vec<int, 4> { using type = int4; };
+template <> struct Vec<int, 2> { using type = int2; };
+template <typename T> struct Vec<T, 1> { using type = T; };
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, T* out) {
+  union {
+    typename Vec<T, V>::type v;
+    T s[V];
+  } u;
+  u.v = *reinterpret_cast<const typename Vec<T, V>::type*>(p);
+#pragma unroll
+  for (int j = 0; j < V; ++j) out[j] = u.s[j];
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const T* in) {
+  union {
+    typename Vec<T, V>::type v;
+    T s[V];
+  } u;
+#pragma unroll
+  for (int j = 0; j < V; ++j) u.s[j] = in[j];
+  *reinterpret_cast<typename Vec<T, V>::type*>(p) = u.v;
+}
+
+constexpr int kMaxCluster = 16;  // blocks of prolong_dots' cluster at most (non-portable over 8)
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the address of `local` (this block's shared memory) in the block of rank
+// `rank` of this cluster
+__device__ __forceinline__ unsigned cluster_address(const void* local, unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(shared_address(local)), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void cluster_store(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ void cluster_store(unsigned addr, double v) {
+  asm volatile("st.shared::cluster.f64 [%0], %1;\n" ::"r"(addr), "d"(v) : "memory");
+}
+
+template <typename T>
+struct ProlongArgs {
+  const T* zj;          // may be null: 0
+  const T* zc;          // may be null: no coarse term
+  const int* agg;
+  const T* arms;
+  const T* free_mask;   // may be null: no mask
+  T* z;
+  const T* r;           // the rest: with the state only
+  T *rz, *r2, *best, *beta;
+  int *stall, *k;
+  const uint8_t *run, *lane;
+  int with_state, P, Ns, span, NA;
+};
+
 // Launch 4: z = (zj + P zc) * free node by node (zj may be absent: 0; zc
 // absent: no coarse term; free absent: no mask); with the state
-// (`with_state`), also rz = r.z and r2 = r.r per segment, and the last block
-// of each segment runs the epilogue: beta, and on a lane that runs rz, r2,
-// best_r2, stall and (segment 0) k.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) prolong_dots_kernel(
-    const T* zj, const T* __restrict__ zc, const int* __restrict__ agg,
-    const T* __restrict__ arms, const T* __restrict__ free_mask, T* z, const T* __restrict__ r,
-    int with_state, T* rz, T* r2, T* best, int* stall, int* k, T* beta,
-    const uint8_t* __restrict__ run, const uint8_t* __restrict__ lane, T* partials, int* tickets,
-    int P, int Ns, int G, int NA) {
-  const int s = blockIdx.x / G, g = blockIdx.x - s * G;
-  const int l = s / P, q = s - l * P;
-  const long long PN = (long long)P * Ns;
-  const long long base = (long long)l * 2 * PN;
-  const int chunk = (Ns + G - 1) / G;
-  const int n0 = g * chunk, n1 = min(Ns, n0 + chunk);
-  T acc[2] = {T(0), T(0)};
-  for (int n = n0 + threadIdx.x; n < n1; n += THREADS) {
-    const long long gn = (long long)q * Ns + n;
-    const long long i0 = base + gn, i1 = i0 + PN;
-    T z0 = zj != nullptr ? zj[i0] : T(0);
-    T z1 = zj != nullptr ? zj[i1] : T(0);
-    if (zc != nullptr) {
-      const T* c = zc + ((long long)l * NA + agg[gn]) * 3;
-      const T zx = sub(c[0], mul(arms[2 * gn + 1], c[2]));
-      const T zy = add(c[1], mul(arms[2 * gn], c[2]));
-      z0 = zj != nullptr ? add(z0, zx) : zx;
-      z1 = zj != nullptr ? add(z1, zy) : zy;
+// (`with_state`), also rz = r.z and r2 = r.r per segment, and rank 0 of
+// the segment's cluster runs the epilogue: beta, and on a lane that runs
+// rz, r2, best_r2, stall and (segment 0) k.
+//
+// Grid (cluster, L P) in clusters of (cluster, 1, 1): the cluster of
+// segment s = l P + q, and its block of rank b the nodes [b span, min(Ns,
+// (b + 1) span)). A thread takes V consecutive nodes at a time (V > 1:
+// span and Ns are multiples of V and the pointers 16-byte aligned), every
+// input loaded before the coarse term's gather by aggregate id.
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS) prolong_dots_kernel(ProlongArgs<T> a) {
+  __shared__ T warp_sums[WARPS][2];
+  __shared__ T rank_sums[kMaxCluster][2];  // rank 0's: every rank's sums, by rank
+  __shared__ __align__(8) unsigned long long sums_in;  // rank 0's: completes with the last
+  const int rank = blockIdx.x, ranks = gridDim.x, s = blockIdx.y;
+  const int l = s / a.P, q = s - l * a.P;
+  const long long PN = (long long)a.P * a.Ns;
+  const long long base = (long long)l * 2 * PN + (long long)q * a.Ns;
+  const int n0 = rank * a.span, n1 = min(a.Ns, n0 + a.span);
+  const bool epilogue = a.with_state && rank == 0 && threadIdx.x == 0;
+  // the epilogue's scalars, read now so that the launch's tail waits on none
+  bool run_s = false, lane_l = false;
+  T rz_old = T(0), best_s = T(0);
+  int stall_s = 0, k_l = 0;
+  if (epilogue) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_address(&sums_in)),
+                 "r"(ranks)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    run_s = a.run[s];
+    lane_l = a.lane[l];
+    rz_old = a.rz[s];
+    best_s = a.best[s];
+    stall_s = a.stall[s];
+    if (q == 0) k_l = a.k[l];
+  }
+  // waited for before any block arrives on rank 0's barrier: it is set up
+  if (a.with_state) asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+  T acc0 = T(0), acc1 = T(0);
+  for (int n = n0 + threadIdx.x * V; n < n1; n += THREADS * V) {
+    const long long gn = (long long)q * a.Ns + n;  // node in the lane's PN
+    const long long i0 = base + n, i1 = i0 + PN;
+    T z0[V], z1[V], f0[V], f1[V], r0[V], r1[V], arm[2 * V];
+    int ag[V];
+    if (a.zj != nullptr) {
+      load_vec<T, V>(a.zj + i0, z0);
+      load_vec<T, V>(a.zj + i1, z1);
     }
-    if (free_mask != nullptr) {
-      z0 = mul(z0, free_mask[i0]);
-      z1 = mul(z1, free_mask[i1]);
+    if (a.free_mask != nullptr) {
+      load_vec<T, V>(a.free_mask + i0, f0);
+      load_vec<T, V>(a.free_mask + i1, f1);
     }
-    z[i0] = z0;
-    z[i1] = z1;
-    if (with_state) {
-      const T r0 = r[i0], r1 = r[i1];
-      acc[0] = add(add(acc[0], mul(r0, z0)), mul(r1, z1));
-      acc[1] = add(add(acc[1], mul(r0, r0)), mul(r1, r1));
+    if (a.with_state) {
+      load_vec<T, V>(a.r + i0, r0);
+      load_vec<T, V>(a.r + i1, r1);
+    }
+    if (a.zc != nullptr) {
+      load_vec<int, V>(a.agg + gn, ag);
+      load_vec<T, V>(a.arms + 2 * gn, arm);  // (x, y) of node gn, gn + 1, ...
+      load_vec<T, V>(a.arms + 2 * gn + V, arm + V);
+      T c[V][3];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const T* cj = a.zc + ((long long)l * a.NA + ag[j]) * 3;
+        c[j][0] = cj[0];
+        c[j][1] = cj[1];
+        c[j][2] = cj[2];
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const T zx = sub(c[j][0], mul(arm[2 * j + 1], c[j][2]));
+        const T zy = add(c[j][1], mul(arm[2 * j], c[j][2]));
+        z0[j] = a.zj != nullptr ? add(z0[j], zx) : zx;
+        z1[j] = a.zj != nullptr ? add(z1[j], zy) : zy;
+      }
+    } else if (a.zj == nullptr) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) z0[j] = z1[j] = T(0);
+    }
+    if (a.free_mask != nullptr) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        z0[j] = mul(z0[j], f0[j]);
+        z1[j] = mul(z1[j], f1[j]);
+      }
+    }
+    store_vec<T, V>(a.z + i0, z0);
+    store_vec<T, V>(a.z + i1, z1);
+    if (a.with_state) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        acc0 = add(add(acc0, mul(r0[j], z0[j])), mul(r1[j], z1[j]));
+        acc1 = add(add(acc1, mul(r0[j], r0[j])), mul(r1[j], r1[j]));
+      }
     }
   }
-  if (!with_state) return;
-  block_sum<T, 2>(acc);
-  if (threadIdx.x == 0) {
-    partials[((long long)s * G + g) * 2] = acc[0];
-    partials[((long long)s * G + g) * 2 + 1] = acc[1];
+  if (!a.with_state) return;
+  // the block's sums: a fixed shuffle tree per warp, then the warps in order
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc0 = add(acc0, __shfl_down_sync(0xffffffffu, acc0, off));
+    acc1 = add(acc1, __shfl_down_sync(0xffffffffu, acc1, off));
   }
-  if (!last_of_segment(tickets + s, G) || threadIdx.x != 0) return;
-  __threadfence();
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    warp_sums[warp][0] = acc0;
+    warp_sums[warp][1] = acc1;
+  }
+  __syncthreads();
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+  if (threadIdx.x == 0) {  // this block's sums into rank 0's table, then its arrival there
+    T t0 = warp_sums[0][0], t1 = warp_sums[0][1];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+      t0 = add(t0, warp_sums[w][0]);
+      t1 = add(t1, warp_sums[w][1]);
+    }
+    const unsigned to = cluster_address(&rank_sums[rank][0], 0);
+    cluster_store(to, t0);
+    cluster_store(to + sizeof(T), t1);
+    asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+                 ::"r"(cluster_address(&sums_in, 0))
+                 : "memory");
+  }
+  if (!epilogue) return;  // no block reads another's memory: the others may leave
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(shared_address(&sums_in))
+        : "memory");
+  }
   T rz_new = T(0), r2_new = T(0);
-  for (int j = 0; j < G; ++j) {
-    rz_new = add(rz_new, __ldcg(partials + ((long long)s * G + j) * 2));
-    r2_new = add(r2_new, __ldcg(partials + ((long long)s * G + j) * 2 + 1));
+  for (int b = 0; b < ranks; ++b) {  // in rank order
+    rz_new = add(rz_new, rank_sums[b][0]);
+    r2_new = add(r2_new, rank_sums[b][1]);
   }
-  tickets[s] = 0;
-  const bool run_s = run[s];
-  const T rz_old = rz[s];
-  beta[s] = run_s ? rz_new / (rz_old != T(0) ? rz_old : T(1)) : T(0);
-  if (!lane[l]) return;
-  const bool improved = run_s && r2_new < mul(T(0.9), best[s]);
-  rz[s] = run_s ? rz_new : rz_old;
-  r2[s] = r2_new;
-  if (improved) best[s] = r2_new;
-  stall[s] = improved ? 0 : (run_s ? stall[s] + 1 : stall[s]);
-  if (q == 0) k[l] += 1;
+  a.beta[s] = run_s ? rz_new / (rz_old != T(0) ? rz_old : T(1)) : T(0);
+  if (lane_l) {
+    const bool improved = run_s && r2_new < mul(T(0.9), best_s);
+    a.rz[s] = run_s ? rz_new : rz_old;
+    a.r2[s] = r2_new;
+    if (improved) a.best[s] = r2_new;
+    a.stall[s] = improved ? 0 : (run_s ? stall_s + 1 : stall_s);
+    if (q == 0) a.k[l] = k_l + 1;
+  }
 }
 
 // Launch 5: p = z + beta p on the segments that run, in the lanes that run.
@@ -330,16 +496,30 @@ int launch_jacobi_restrict(void* r, void* block_inv, void* arms, void* members, 
   return (int)cudaGetLastError();
 }
 
+// A cluster of `cluster` blocks (1 to 16; over 8 needs the non-portable
+// attribute that load_kernels sets) per segment, `vec` values a load:
+// kVec<T> or 1.
 template <typename T>
-int launch_prolong_dots(void* zj, void* zc, void* agg, void* arms, void* free_mask, void* z,
-                        void* r, int with_state, void* rz, void* r2, void* best, void* stall,
-                        void* k, void* beta, void* run, void* lane, void* partials, void* tickets,
-                        int L, int P, int Ns, int G, int NA, cudaStream_t stream) {
-  prolong_dots_kernel<T><<<L * P * G, THREADS, 0, stream>>>(
-      (const T*)zj, (const T*)zc, (const int*)agg, (const T*)arms, (const T*)free_mask, (T*)z,
-      (const T*)r, with_state, (T*)rz, (T*)r2, (T*)best, (int*)stall, (int*)k, (T*)beta,
-      (const uint8_t*)run, (const uint8_t*)lane, (T*)partials, (int*)tickets, P, Ns, G, NA);
-  return (int)cudaGetLastError();
+int launch_prolong_dots(const ProlongArgs<T>& a, int L, int cluster, int vec,
+                        cudaStream_t stream) {
+  if (cluster < 1 || cluster > kMaxCluster || (vec != 1 && vec != kVec<T>) ||
+      (long long)cluster * a.span < a.Ns || a.span % vec != 0 || a.Ns % vec != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, L * a.P);
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = vec == 1 ? cudaLaunchKernelEx(&cfg, prolong_dots_kernel<T, 1>, a)
+                                   : cudaLaunchKernelEx(&cfg, prolong_dots_kernel<T, kVec<T>>, a);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -356,11 +536,19 @@ int load_kernels() {
   cudaFuncAttributes attr;
   const void* kernels[] = {
       (const void*)alpha_kernel<T>, (const void*)update_xr_kernel<T>,
-      (const void*)jacobi_restrict_kernel<T>, (const void*)prolong_dots_kernel<T>,
-      (const void*)update_p_kernel<T>,
+      (const void*)jacobi_restrict_kernel<T>, (const void*)prolong_dots_kernel<T, 1>,
+      (const void*)prolong_dots_kernel<T, kVec<T>>, (const void*)update_p_kernel<T>,
   };
   for (const void* kernel : kernels) {
     const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // clusters of prolong_dots over the portable 8 blocks
+  const void* clustered[] = {(const void*)prolong_dots_kernel<T, 1>,
+                             (const void*)prolong_dots_kernel<T, kVec<T>>};
+  for (const void* kernel : clustered) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
@@ -395,11 +583,34 @@ int fea_cg_jacobi_restrict(int dbl, void* r, void* block_inv, void* arms, void* 
 
 int fea_cg_prolong_dots(int dbl, void* zj, void* zc, void* agg, void* arms, void* free_mask,
                         void* z, void* r, int with_state, void* rz, void* r2, void* best,
-                        void* stall, void* k, void* beta, void* run, void* lane, void* partials,
-                        void* tickets, int L, int P, int Ns, int G, int NA, void* stream) {
-  auto launch = dbl ? launch_prolong_dots<double> : launch_prolong_dots<float>;
-  return launch(zj, zc, agg, arms, free_mask, z, r, with_state, rz, r2, best, stall, k, beta, run,
-                lane, partials, tickets, L, P, Ns, G, NA, (cudaStream_t)stream);
+                        void* stall, void* k, void* beta, void* run, void* lane, int L, int P,
+                        int Ns, int cluster, int span, int vec, int NA, void* stream) {
+  auto launch = [&](auto zero) {
+    using T = decltype(zero);
+    ProlongArgs<T> a;
+    a.zj = (const T*)zj;
+    a.zc = (const T*)zc;
+    a.agg = (const int*)agg;
+    a.arms = (const T*)arms;
+    a.free_mask = (const T*)free_mask;
+    a.z = (T*)z;
+    a.r = (const T*)r;
+    a.rz = (T*)rz;
+    a.r2 = (T*)r2;
+    a.best = (T*)best;
+    a.beta = (T*)beta;
+    a.stall = (int*)stall;
+    a.k = (int*)k;
+    a.run = (const uint8_t*)run;
+    a.lane = (const uint8_t*)lane;
+    a.with_state = with_state;
+    a.P = P;
+    a.Ns = Ns;
+    a.span = span;
+    a.NA = NA;
+    return launch_prolong_dots<T>(a, L, cluster, vec, (cudaStream_t)stream);
+  };
+  return dbl ? launch(0.0) : launch(0.0f);
 }
 
 int fea_cg_update_p(int dbl, void* p, void* z, void* beta, void* run, void* lane, int L, int P,

@@ -175,8 +175,9 @@ def band_tables(S, band_idx, hb: int, free=None):
     is multiplied by its row's and its column's mask, exactly, so the
     product is free * K (free * u).
 
-    Returns vals (C, n_slices, slots, ELL_ROWS) in S's dtype and cols
-    (n_slices, slots, ELL_ROWS) int32."""
+    Returns vals (C, n_slices, slots, ELL_ROWS) in S's dtype, cols
+    (n_slices, slots, ELL_ROWS) int32 and their width table (n_slices,)
+    int32 (`slice_widths`), all on S's device."""
     nblk, R, W = S.shape[-3:]
     n_dofs = nblk * R
     n = n_dofs // 2
@@ -200,14 +201,24 @@ def band_tables(S, band_idx, hb: int, free=None):
     vals = S.new_zeros(S.shape[:-3] + (n_slices * slots * ELL_ROWS,))
     vals[..., ell] = values
     shape = (n_slices, slots, ELL_ROWS)
-    return vals.reshape(S.shape[:-3] + shape), cols.reshape(shape)
+    cols = cols.reshape(shape)
+    return vals.reshape(S.shape[:-3] + shape), cols, slice_widths(cols)
 
 
-def band_matvec_reference(vals, cols, u, y):
+def slice_widths(cols):
+    """(n_slices,) int32: the widest row of each slice of the compacted
+    band's columns (its real slots; a row's pads follow them), made on
+    cols' device with no host read. `ops.band.band_matvec` reads each
+    slice this far and no further."""
+    return (cols >= 0).sum(dim=1).amax(dim=-1).to(torch.int32)
+
+
+def band_matvec_reference(vals, cols, u, y, widths=None):
     """y = the compacted band (`band_tables`) times u, on planar (C,
-    n_dofs) vectors: the plain version of `ops.band.band_matvec`, as
-    torch gathers and a sum. A pad's column -1 reads the zero appended to
-    u."""
+    n_dofs) vectors: the plain version of `ops.band.band_matvec`, with its
+    arguments, as torch gathers and a sum over every slot (the width
+    table, where given, is not read). A pad's column -1 reads the zero
+    appended to u."""
     C, n_dofs = u.shape
     padded = torch.cat([u, u.new_zeros((C, 1))], dim=-1)
     rows = (vals * padded[:, cols]).sum(dim=-2)  # (C, n_slices, ELL_ROWS)

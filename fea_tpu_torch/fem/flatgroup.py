@@ -230,20 +230,21 @@ class ChunkPreconditioner:
 class BandOperator:
     """The chunk's band operator on the card, y = free * K (free * u) on
     planar (C, 2*P*Nb) vectors, through the band's non-zeros (`vals`,
-    `cols`: `banded.band_tables`, the free masks folded into the values)
-    and `ops.band.band_matvec`. It applies the free masks itself
+    `cols` and their width table `widths`: `banded.band_tables`, the free
+    masks folded into the values) and
+    `ops.band.band_matvec`. It applies the free masks itself
     (`masks_free`), so the CG loop does not mask again. y is one buffer,
     allocated here and written by each call (a captured block replays on
     the same memory): the result of a call lasts until the next call."""
 
     masks_free = True
 
-    def __init__(self, vals, cols, n_dofs: int):
-        self.vals, self.cols = vals.contiguous(), cols.contiguous()
+    def __init__(self, vals, cols, widths, n_dofs: int):
+        self.vals, self.cols, self.widths = vals.contiguous(), cols.contiguous(), widths
         self.y = vals.new_empty((vals.shape[0], n_dofs))
 
     def __call__(self, u):
-        band.band_matvec(self.vals, self.cols, u, self.y)
+        band.band_matvec(self.vals, self.cols, u, self.y, self.widths)
         return self.y
 
 

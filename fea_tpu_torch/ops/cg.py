@@ -19,7 +19,8 @@ updated in place, so a captured block replays on the same memory.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (a dtype other than float32 / float64, another device,
-a non-contiguous tensor); it takes its plain version (`*_reference`, with
+a non-contiguous tensor; for `prolong_dots` where its node count takes
+16-byte loads, a vector that does not start on a 16-byte boundary); it takes its plain version (`*_reference`, with
 the same signature: the arithmetic of the torch ops the loop ran before,
 written into the state in place) only where the tensors lie on the CPU. Every kernel launch adds one to its wrapper's
 `launches`; a launch recorded in a CUDA graph counts at each replay of it.
@@ -37,11 +38,20 @@ from ._build import build_library
 
 DTYPES = (torch.float32, torch.float64)
 THREADS = 256  # a block of every kernel (csrc/cg_segmented.cu)
-# nodes of a segment that one block of the reductions sums: a segment's
-# dot products are summed in an order set by its node count alone, the
-# same in every chunk (16 blocks a segment at the production bucket, 256
-# over its 16 segments)
+# nodes of a segment that one block of cg_alpha's reduction sums: a
+# segment's dot products are summed in an order set by its node count
+# alone, the same in every chunk (16 blocks a segment at the production
+# bucket, 256 over its 16 segments)
 NODES_PER_BLOCK = 512
+# prolong_dots: a thread-block cluster per segment, a block per
+# PROLONG_NODES nodes (a 16-byte load of 4 f32 nodes a thread) up to
+# PROLONG_CLUSTER blocks (over 8, the portable size, by the non-portable
+# attribute): 8 at the production bucket, 16 from 16,384 nodes, where a
+# chunk of few segments at 8 would leave most of the card idle
+# (tools/sweep_prolong_dots.py)
+PROLONG_CLUSTER = 16
+PROLONG_NODES = 4 * THREADS
+ALIGN = 16  # bytes: the alignment of every vector prolong_dots and band_matvec load
 
 
 def build() -> Path:
@@ -57,7 +67,7 @@ def _library():
         "fea_cg_alpha": [i] + [p] * 13 + [i] * 6 + [p],
         "fea_cg_update_xr": [i] + [p] * 6 + [i] * 3 + [p],
         "fea_cg_jacobi_restrict": [i] + [p] * 6 + [i, ll, i, i, p],
-        "fea_cg_prolong_dots": [i] + [p] * 7 + [i] + [p] * 10 + [i] * 5 + [p],
+        "fea_cg_prolong_dots": [i] + [p] * 7 + [i] + [p] * 8 + [i] * 7 + [p],
         "fea_cg_update_p": [i] + [p] * 5 + [i] * 3 + [p],
     }
     for name, argtypes in signatures.items():
@@ -87,8 +97,34 @@ def _raise_on(err, what):
 
 
 def _groups(seg_nodes: int) -> int:
-    """Blocks per segment of the reductions."""
+    """Blocks per segment of cg_alpha's reduction."""
     return -(-seg_nodes // NODES_PER_BLOCK)
+
+
+def prolong_plan(seg_nodes: int):
+    """(cluster, span) of `prolong_dots` over segments of `seg_nodes`
+    nodes: the cluster's block of rank b takes the nodes [b span, min(Ns,
+    (b + 1) span)), span a multiple of 4 (a 16-byte load of f32, two of
+    f64). Every rank gets nodes; the ranges tile the segment once."""
+    cluster = min(PROLONG_CLUSTER, -(-seg_nodes // PROLONG_NODES))
+    span = -(-seg_nodes // cluster)
+    return cluster, -(-span // 4) * 4
+
+
+def prolong_vector(seg_nodes: int, dtype) -> int:
+    """Values of `prolong_dots`' loads: 16 bytes where every segment
+    starts on a multiple of them, else one (a ragged node count)."""
+    vec = ALIGN // (torch.finfo(dtype).bits // 8)
+    return vec if seg_nodes % vec == 0 else 1
+
+
+def _check_aligned(kernel, named):
+    """Raises unless every tensor of `named` ({name: tensor or None})
+    starts on a 16-byte boundary (the kernel's vector loads)."""
+    for name, t in named.items():
+        if t is not None and t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: {kernel} takes tensors that start on a {ALIGN}-byte "
+                             f"boundary; got an offset of {t.data_ptr() % ALIGN} bytes")
 
 
 # ---- the loop's state ---------------------------------------------------
@@ -99,8 +135,8 @@ class SegmentedState:
     of Ns nodes, in tensors allocated once and updated in place: vectors x,
     r, p, z (L, 2 * P * Ns); per segment rz, r2, best (best_r2), atol2,
     stall, active, and the body's alpha, beta and run flags (L, P); per lane
-    k and the lane flag (L,); the reductions' partial sums and tickets (the
-    kernels reset each ticket they use)."""
+    k and the lane flag (L,); cg_alpha's partial sums and tickets (the
+    kernel resets each ticket it uses)."""
 
     def __init__(self, lanes: int, n_seg: int, seg_nodes: int, dtype, device,
                  max_iters: int, stall_limit: int):
@@ -435,35 +471,37 @@ def prolong_dots(zj, zc, agg, arms, free, z, n_seg, state=None):
     L, ndof = z.shape
     PN = ndof // 2
     NA = 0 if zc is None else zc.numel() // (3 * L)
-    named = {"z": (z, None, (L, ndof)), "zj": (zj, None, (L, ndof)),
-             "zc": (None if zc is None else zc.reshape(L, NA, 3), None, (L, NA, 3)),
-             "agg": (agg if zc is not None else None, torch.int32, (PN,)),
-             "arms": (arms if zc is not None else None, None, (PN, 2)),
+    if zc is not None and not zc.is_contiguous():
+        raise ValueError("prolong_dots takes a contiguous zc")
+    zc = None if zc is None else zc.reshape(L, NA, 3)
+    agg, arms = (agg, arms) if zc is not None else (None, None)
+    named = {"z": (z, None, (L, ndof)), "zj": (zj, None, (L, ndof)), "zc": (zc, None, (L, NA, 3)),
+             "agg": (agg, torch.int32, (PN,)), "arms": (arms, None, (PN, 2)),
              "free": (free, None, (L, ndof))}
     if state is not None:
         if z is not state.z or state.P != n_seg:
             raise ValueError("prolong_dots with the state writes state.z, over the state's segments")
         named.update(_state_tensors(state, "r", "rz", "r2", "best", "stall", "k", "beta", "run",
-                                    "lane", "partials", "tickets"))
+                                    "lane"))
     _check(z.device, z.dtype, named)
     if ndof % (2 * n_seg):
         raise ValueError(f"{ndof} dofs do not split into {n_seg} segments of two components")
-    if zc is not None and not zc.is_contiguous():
-        raise ValueError("prolong_dots takes a contiguous zc")
-    Ns = ndof // (2 * n_seg)
-    groups = _groups(Ns) if state is None else state.groups
     s = state
+    Ns = ndof // (2 * n_seg)
+    vec = prolong_vector(Ns, z.dtype)
+    if vec > 1:
+        _check_aligned("prolong_dots", {"z": z, "zj": zj, "agg": agg, "arms": arms,
+                                        "free": free, "state.r": None if s is None else s.r})
+    cluster, span = prolong_plan(Ns)
     lib = load(z.device.index or 0)
     with torch.cuda.device(z.device):
         err = lib.fea_cg_prolong_dots(
             int(z.dtype == torch.float64),
-            *map(_ptr, (zj, zc, agg if zc is not None else None, arms if zc is not None else None,
-                        free, z, None if s is None else s.r)),
+            *map(_ptr, (zj, zc, agg, arms, free, z, None if s is None else s.r)),
             int(s is not None),
-            *map(_ptr, (None, None, None, None, None, None, None, None, None, None) if s is None
-                 else (s.rz, s.r2, s.best, s.stall, s.k, s.beta, s.run, s.lane, s.partials,
-                       s.tickets)),
-            L, n_seg, Ns, groups, NA, _stream(z.device))
+            *map(_ptr, (None,) * 8 if s is None
+                 else (s.rz, s.r2, s.best, s.stall, s.k, s.beta, s.run, s.lane)),
+            L, n_seg, Ns, cluster, span, vec, NA, _stream(z.device))
     _raise_on(err, "prolong_dots launch")
     _count(prolong_dots)
 

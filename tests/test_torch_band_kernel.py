@@ -106,7 +106,7 @@ def test_tables_hold_the_band_and_nothing_outside_ks_structure(plates):
     solvers, tables, m_real_p, hb = cpu_chunk(plates)
     P, Nb = tables[0].shape[:2]
     S, band_idx, _ = chunk_band(tables, m_real_p, hb)
-    vals, cols = banded.band_tables(S, band_idx, hb)
+    vals, cols, _ = banded.band_tables(S, band_idx, hb)
     n_dofs = 2 * P * Nb
     assert vals.shape == (S.shape[0],) + tuple(cols.shape) and cols.dtype == torch.int32
     got, pairs = dense_from_tables(vals, cols, n_dofs)
@@ -138,13 +138,13 @@ def test_plain_version_matches_fea_tpus_banded_matvec(plates, dtype):
     PN = P * Nb
     S, band_idx, free = chunk_band(tables, m_real_p, hb)
     S, free = S.to(dtype), free.to(dtype)
-    vals, cols = banded.band_tables(S, band_idx, hb, free)
+    vals, cols, widths = banded.band_tables(S, band_idx, hb, free)
     C = S.shape[0]
     u = torch.from_numpy(np.random.default_rng(3).normal(size=(C, 2 * PN))).to(dtype)
     y = torch.empty_like(u)
     banded.band_matvec_reference(vals, cols, u, y)
     through_wrapper = torch.empty_like(u)
-    band.band_matvec(vals, cols, u, through_wrapper)  # CPU tensors: the plain version
+    band.band_matvec(vals, cols, u, through_wrapper, widths)  # CPU tensors: the plain version
     assert torch.equal(through_wrapper, y)
 
     def jax_lane(c):
@@ -275,6 +275,7 @@ def test_kernel_matches_both_plain_versions(shape, dtype):
     device = tc.cuda_or_skip()
     if shape == "ragged":
         vals, cols = ragged_tables(device, dtype)
+        widths = banded.slice_widths(cols)
         C, n_dofs = vals.shape[0], 1000
         K = dense_from_tables(vals.cpu(), cols.cpu(), n_dofs)[0].to(device)
 
@@ -283,7 +284,7 @@ def test_kernel_matches_both_plain_versions(shape, dtype):
     else:
         S, band_idx, hb, free = production_chunk(device)
         S, free = S.to(dtype), free.to(dtype)
-        vals, cols = banded.band_tables(S, band_idx, hb, free)
+        vals, cols, widths = banded.band_tables(S, band_idx, hb, free)
         C, n_dofs = free.shape
         A = solver.masked_operator(flatgroup.dense_band_operator(S, hb), free)
 
@@ -292,9 +293,9 @@ def test_kernel_matches_both_plain_versions(shape, dtype):
     u = torch.from_numpy(np.random.default_rng(6).normal(size=(C, n_dofs))).to(device, dtype)
     y, plain = torch.empty_like(u), torch.empty_like(u)
     before = band.band_matvec.launches
-    band.band_matvec(vals, cols, u, y)
+    band.band_matvec(vals, cols, u, y, widths)
     again = torch.empty_like(u)
-    band.band_matvec(vals, cols, u, again)
+    band.band_matvec(vals, cols, u, again, widths)
     banded.band_matvec_reference(vals, cols, u, plain)
     torch.cuda.synchronize()
     assert band.band_matvec.launches == before + 2
@@ -327,15 +328,16 @@ def test_graph_route_equals_the_kernels_route(plates, monkeypatch):
 def test_wrapper_raises_on_cpu_bf16_or_strided_tensors():
     device = tc.cuda_or_skip()
     vals, cols = ragged_tables(device, torch.float32, C=2, n_dofs=256)
+    widths = banded.slice_widths(cols)
     u = torch.ones((2, 256), device=device)
     y = torch.empty_like(u)
     with pytest.raises(ValueError):
-        band.band_matvec(vals, cols, u.cpu(), y)
+        band.band_matvec(vals, cols, u.cpu(), y, widths)
     with pytest.raises(ValueError):
-        band.band_matvec(vals.cpu(), cols, u, y)
+        band.band_matvec(vals.cpu(), cols, u, y, widths)
     with pytest.raises(TypeError):
-        band.band_matvec(vals.bfloat16(), cols, u.bfloat16(), y.bfloat16())
+        band.band_matvec(vals.bfloat16(), cols, u.bfloat16(), y.bfloat16(), widths)
     with pytest.raises(ValueError):
-        band.band_matvec(vals, cols, torch.ones((256, 2), device=device).T, y)
+        band.band_matvec(vals, cols, torch.ones((256, 2), device=device).T, y, widths)
     with pytest.raises(ValueError):
-        band.band_matvec(vals.double(), cols, u, y)
+        band.band_matvec(vals.double(), cols, u, y, widths)
