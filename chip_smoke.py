@@ -168,12 +168,15 @@ Phase 16: the CG loop's kernels (csrc/cg_segmented.cu) and the band
          on the lanes that both end under a residual of 1e-4. Blocks of 8,
          16 and 32 bodies between host reads: ms, host reads, the same rows.
          Two datagen runs of 2 plates from one seed: the same bytes.
-         Under `--against TREE` the other checkout's prolong_dots and band
-         kernel are timed in the same turns (`earlier`): its z bit for bit
-         this kernel's, its band product bit for bit this one's.
-         prolong_dots prints its TB/s over the bytes it moves (the bound's),
-         the band kernel over the bytes it is modelled to move (each slice
-         up to its widest row) beside the bound's.
+         Under `--against TREE` the other checkout's cg_alpha, prolong_dots,
+         cg_update_p and band kernel are timed in the same turns
+         (`earlier`; its cg_alpha on a copy of the state with the scratch
+         it took): its run and lane flags, z, p and band product bit for
+         bit this tree's (alpha within the tolerance: pAp is summed in
+         another order). cg_alpha, prolong_dots and cg_update_p print their
+         launch plans and TB/s over the bytes they move (the bound's), the
+         band kernel over the bytes it is modelled to move (each slice up
+         to its widest row) beside the bound's.
 
 Kernel times are device times: CUDA events around calls that the host
 queued behind a device-side wait, each function timed in turns.
@@ -235,6 +238,13 @@ REDESIGNED = {
     "group_norm_silu_fwd": "x read once into a thread-block cluster's shared memory; "
                            "two launches with 16-byte vectors where a group does not fit",
     "group_norm_silu_bwd": "two launches over the forward's saved coefficients",
+    "cg_alpha": "one thread-block cluster per segment, 16-byte loads, the sums through rank 0's "
+                "shared memory (no partials, tickets or atomics in device memory)",
+    "prolong_dots": "one thread-block cluster per segment, 16-byte loads, the sums through rank "
+                    "0's shared memory (no partials, tickets or atomics in device memory)",
+    "cg_update_p": "a grid of blocks per segment, flags and beta read once a block, stopped "
+                   "segments skipped whole, 16-byte loads",
+    "band_matvec": "each block's slices staged by TMA bulk copies up to their widest row",
 }
 
 
@@ -2566,6 +2576,20 @@ def prolong_dots_bytes(L, P, Ns, NA, item):
     return 4 * V + L * NA * 3 * item + PN * (2 * item + 4) + S * (6 * item + 9) + L * 9
 
 
+def cg_alpha_bytes(L, P, Ns, item):
+    """Bytes cg_alpha must move: p and Ap read (L, 2 P Ns); rz, r2, atol2,
+    stall and active read and alpha and run written per segment; k read and
+    the lane flag written per lane."""
+    return 2 * L * 2 * P * Ns * item + L * P * (4 * item + 6) + L * 5
+
+
+def cg_update_p_bytes(L, P, Ns, item, share):
+    """Bytes cg_update_p must move where a `share` of the segments runs: z
+    and p read and p written on those; beta and run read per segment, the
+    lane flag per lane."""
+    return 3 * L * 2 * P * Ns * item * share + L * P * (item + 1) + L
+
+
 def cg_launches(st, A, pre):
     """{name: (run(state, fn) -> outputs, kernel wrapper, plain version,
     (bytes, operations) the launch must move and do at this state)}: each
@@ -2608,13 +2632,12 @@ def cg_launches(st, A, pre):
         fn(s)
         return {"p": s.p}
 
-    # bytes: each input read once, each output written once (the
-    # reductions' partials and tickets are scratch); operations: each
-    # product and sum on the values this state reads
+    # bytes: each input read once, each output written once; operations:
+    # each product and sum on the values this state reads
     zc_bytes = C * NA * 3 * item
     return {
         "cg_alpha": (alpha, cg.cg_alpha, cg.cg_alpha_reference,
-                     (2 * V + S * (4 * item + 6) + C * 5, 2 * C * ndof)),
+                     (cg_alpha_bytes(C, st.P, st.Ns, item), 2 * C * ndof)),
         "cg_update_xr": (update_xr, cg.cg_update_xr, cg.cg_update_xr_reference,
                          (6 * V * lanes + S * item + C, 4 * C * ndof * lanes)),
         "jacobi_restrict": (jacobi, cg.jacobi_restrict, cg.jacobi_restrict_reference,
@@ -2623,7 +2646,7 @@ def cg_launches(st, A, pre):
         "prolong_dots": (prolong, cg.prolong_dots, cg.prolong_dots_reference,
                          (prolong_dots_bytes(C, st.P, st.Ns, NA, item), 8 * C * ndof)),
         "cg_update_p": (update_p, cg.cg_update_p, cg.cg_update_p_reference,
-                        (3 * V * segs + S * (item + 1) + C, 2 * C * ndof * segs)),
+                        (cg_update_p_bytes(C, st.P, st.Ns, item, segs), 2 * C * ndof * segs)),
     }
 
 
@@ -2747,8 +2770,29 @@ def band_operator_entry(system, tables, m_real_p, band_hb, u, earlier=None):
             "rel_err": max(errs["plain"], errs["dense"]) / span, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "dense_ms": ms["dense"], "bound_ms": bound,
             "bound_by": bound_by, "library_ms": ms["library"], "nonzeros_a_lane": structure,
+            "redesigned": REDESIGNED["band_matvec"],
             "slots": int(cols.shape[1]), "bound_bytes": nbytes,
             **({"earlier_ms": ms["earlier"]} if earlier else {})}
+
+
+def earlier_state(st, earlier_cg):
+    """A copy of the loop state `st` for the wrappers of `earlier_cg` (the
+    `ops.cg` of another checkout): with the scratch its `cg_alpha` took
+    where it had any (partials and tickets, sized by its own blocks a
+    segment)."""
+    other = st.clone()
+    groups = getattr(earlier_cg, "_groups", None)
+    if groups is not None:
+        segments = st.k.shape[0] * st.P
+        other.groups = groups(st.Ns)
+        other.partials = st.x.new_zeros(segments * other.groups * 2)
+        other.tickets = torch.zeros(segments, dtype=torch.int32, device=st.x.device)
+    return other
+
+
+# outputs of the launches that are held bit for bit against the earlier
+# checkout's kernel (alpha itself comes of pAp, whose order of sums differs)
+EARLIER_EQUAL = {"cg_alpha": ("run", "lane"), "prolong_dots": ("z",), "cg_update_p": ("p",)}
 
 
 def coarse_product_time(pre, r):
@@ -2794,13 +2838,19 @@ def phase_cg_loop(device, results, earlier=None):
     tables, m_real_p = chunk_tables(solvers, host, m_real, device)
     system = chunk_system(*tables, m_real_p=m_real_p, n_coarse=kw["n_coarse"], band_hb=band_hb)
     st, A = chunk_state(system, P, kw["tol"], kw["max_iters"], CG_STATE_BODIES)
+    plans = {"cg_alpha": "one cluster of %d blocks of %d nodes a segment" % cg.alpha_plan(st.Ns),
+             "prolong_dots": "one cluster of %d blocks of %d nodes a segment"
+                             % cg.prolong_plan(st.Ns),
+             "cg_update_p": "%d blocks of %d nodes a segment" % cg.update_p_plan(st.Ns)}
     log(f"phase 16: phase 9's chunk, {P} plates x {C} conditions, band hb {s0.band_hb}, "
         f"{st.x.shape[1]} dofs a lane, member table {tuple(system.precondition.members.shape)}, "
-        f"{st.groups} blocks a segment in cg_alpha's reduction, a cluster of "
-        f"{cg.prolong_plan(st.Ns)[0]} in prolong_dots'; set-up {time.perf_counter() - t0:.1f} s")
+        f"{cg.vector_width(st.Ns, st.x.dtype)} values a load; "
+        + "; ".join(f"{name}: {plan}" for name, plan in plans.items())
+        + f"; set-up {time.perf_counter() - t0:.1f} s")
+    earlier_cg = None if earlier is None else earlier_module(earlier, "cg")
 
-    # (a) each launch against its plain version (and prolong_dots against
-    # the earlier checkout's), then timed beside it
+    # (a) each launch against its plain version (and the redesigned ones
+    # against the earlier checkout's), then timed beside it
     entries, bad = {}, []
     for name, (run, kernel, plain, (nbytes, ops)) in cg_launches(st, A, system.precondition).items():
         mine, theirs = st.clone(), st.clone()
@@ -2808,12 +2858,20 @@ def phase_cg_loop(device, results, earlier=None):
         err, rel = launch_error(got, run(theirs, plain))
         if rel > CG_KERNEL_REL:
             bad.append(name)
-        a, b, c = st.clone(), st.clone(), st.clone()
+        a, b = st.clone(), st.clone()
+        c = None if earlier_cg is None else earlier_state(st, earlier_cg)
         fns = {"kernel": lambda: run(a, kernel), "plain": lambda: run(b, plain)}
-        if earlier is not None and name == "prolong_dots":
-            other = earlier_module(earlier, "cg").prolong_dots
-            if not torch.equal(run(st.clone(), other)["z"], got["z"]):
-                bad.append("prolong_dots: z is not the earlier kernel's")
+        against = ""
+        if earlier_cg is not None and name in EARLIER_EQUAL:
+            other = getattr(earlier_cg, name)
+            theirs = run(earlier_state(st, earlier_cg), other)
+            differ = [f for f in EARLIER_EQUAL[name] if not torch.equal(theirs[f], got[f])]
+            if differ:
+                bad.append(f"{name}: {differ} not the earlier kernel's")
+            against = f"its {', '.join(EARLIER_EQUAL[name])} bit for bit this kernel's"
+            if name == "cg_alpha":
+                against += (f", alpha {max_abs_err(theirs['alpha'], got['alpha']):.3e} from this "
+                            f"kernel's (pAp summed in another order)")
             fns["earlier"] = lambda: run(c, other)
         torch.cuda.synchronize()
         ms = in_turns(fns, 50)
@@ -2822,17 +2880,17 @@ def phase_cg_loop(device, results, earlier=None):
                          "replaces": CG_REPLACES[name], "max_abs_err": err, "rel_err": rel,
                          "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
                          "bound_by": bound_by, "library_ms": None}
+        if name in REDESIGNED:
+            entries[name]["redesigned"] = REDESIGNED[name]
         line = (f"phase 16: {name}: max abs err vs plain {err:.3e} ({rel:.3e} of the span, "
                 f"tolerance {CG_KERNEL_REL}); kernel {ms['kernel']:.4f} ms, plain "
                 f"{ms['plain']:.4f} ms, bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB)")
-        if name == "prolong_dots":
-            cluster, span = cg.prolong_plan(st.Ns)
+        if name in plans:
             line += (f"; {nbytes / ms['kernel'] / 1e9:.3f} TB/s over the bytes it reads and "
-                     f"writes (each once: the bound's); clusters of {cluster} blocks of {span} "
-                     f"nodes")
+                     f"writes (each once: the bound's); {plans[name]}")
         if "earlier" in ms:
             entries[name]["earlier_ms"] = ms["earlier"]
-            line += f"; earlier {ms['earlier']:.4f} ms, its z bit for bit this kernel's"
+            line += f"; earlier {ms['earlier']:.4f} ms, {against}"
         log(line)
     if bad:
         raise AssertionError(f"phase 16: kernels off their plain versions: {bad}")

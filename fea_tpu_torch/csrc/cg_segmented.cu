@@ -29,24 +29,24 @@
 // once through the member table.
 //
 // Design:
-//   - alpha's reduction per (lane, segment): G blocks per segment each sum a slice
-//     of the segment's nodes (both components) and write one partial, by a
-//     fixed tree in shared memory; the last block of the segment to finish
-//     (an atomic ticket per segment, reset to 0 by that block, so nothing is
-//     zeroed between launches or CUDA graph replays) sums the G partials in
-//     index order and runs the scalar epilogue (alpha). No floating-point
-//     atomics: a chunk repeats bit for bit;
-//   - prolong_dots (the costliest launch of a body) reduces each segment
-//     inside one thread-block cluster instead: a block per contiguous range
-//     of the segment's nodes (ops/cg.py prolong_plan), 16-byte loads of a
-//     thread's consecutive nodes, a fixed shuffle tree per warp, then the
-//     warps in order; each block stores its sums into rank 0's shared
-//     memory (distributed shared memory) and arrives on rank 0's mbarrier,
-//     and rank 0 alone waits, sums them in rank order and runs the epilogue
-//     (beta, rz, r2, best_r2, stall and k, its scalars read at the start of
-//     the launch). No block reads another's memory, so the others leave at
-//     once; rank 0 leaves after every store into it has landed. No partial,
-//     ticket, fence or atomic goes through device memory;
+//   - the three per-segment reductions (pAp in alpha; rz and r2 in
+//     prolong_dots) each run inside one thread-block cluster per (lane,
+//     segment): a block per contiguous range of the segment's nodes
+//     (ops/cg.py alpha_plan, prolong_plan), 16-byte loads of a thread's
+//     consecutive nodes, a fixed shuffle tree per warp, then the warps in
+//     order; each block stores its sums into rank 0's shared memory
+//     (distributed shared memory) and arrives on rank 0's mbarrier, and
+//     rank 0 alone waits, sums them in rank order and runs the launch's
+//     scalar epilogue (its scalars read at the start of the launch, so the
+//     tail waits on no load). No block reads another's memory, so the
+//     others leave at once; rank 0 leaves after every store into it has
+//     landed. No partial, ticket, fence or atomic goes through device
+//     memory, and the order of a sum depends on the segment's node count
+//     alone: a chunk repeats bit for bit;
+//   - the elementwise updates of p run on a grid of (blocks, segments)
+//     (ops/cg.py update_p_plan): a block reads its segment's flags and beta
+//     once and leaves before it loads a vector where the segment or its
+//     lane has stopped; no 64-bit division per element;
 //   - products and sums are rounded one at a time (__fmul_rn / __fadd_rn,
 //     no FMA contraction), as the torch ops they replace round them, so the
 //     elementwise updates and the preconditioner's terms equal the plain
@@ -64,6 +64,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int kMaxCluster = 16;  // blocks of a reduction's cluster at most (non-portable over 8)
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -72,81 +73,206 @@ __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, 
 __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
 
-// Sums v[i] over the block by a fixed tree; every thread gets the sums.
-template <typename T, int NV>
-__device__ __forceinline__ void block_sum(T (&v)[NV]) {
-  __shared__ T sh[NV][THREADS];
+// values of T in a 16-byte load
+template <typename T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+// V consecutive values at p (16 bytes, or one value for V = 1) in one access
+template <typename T, int V>
+struct Vec;
+template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<double, 2> { using type = double2; };
+template <> struct Vec<int, 4> { using type = int4; };
+template <> struct Vec<int, 2> { using type = int2; };
+template <typename T> struct Vec<T, 1> { using type = T; };
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, T* out) {
+  union {
+    typename Vec<T, V>::type v;
+    T s[V];
+  } u;
+  u.v = *reinterpret_cast<const typename Vec<T, V>::type*>(p);
 #pragma unroll
-  for (int i = 0; i < NV; ++i) sh[i][threadIdx.x] = v[i];
-  __syncthreads();
-#pragma unroll
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-#pragma unroll
-      for (int i = 0; i < NV; ++i) sh[i][threadIdx.x] = add(sh[i][threadIdx.x], sh[i][threadIdx.x + s]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = sh[i][0];
+  for (int j = 0; j < V; ++j) out[j] = u.s[j];
 }
 
-// Called by every thread after thread 0 wrote the block's partial: true in
-// the last of the segment's `groups` blocks to arrive (all its threads).
-__device__ __forceinline__ bool last_of_segment(int* ticket, int groups) {
-  __shared__ int last;
-  if (threadIdx.x == 0) {
-    __threadfence();  // the partial, before the ticket
-    last = atomicAdd(ticket, 1) == groups - 1;
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const T* in) {
+  union {
+    typename Vec<T, V>::type v;
+    T s[V];
+  } u;
+#pragma unroll
+  for (int j = 0; j < V; ++j) u.s[j] = in[j];
+  *reinterpret_cast<typename Vec<T, V>::type*>(p) = u.v;
+}
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the address of `local` (this block's shared memory) in the block of rank
+// `rank` of this cluster
+__device__ __forceinline__ unsigned cluster_address(const void* local, unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(shared_address(local)), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void cluster_store(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ void cluster_store(unsigned addr, double v) {
+  asm volatile("st.shared::cluster.f64 [%0], %1;\n" ::"r"(addr), "d"(v) : "memory");
+}
+
+// A segment's NV sums over its cluster (a block per range of its nodes,
+// rank = blockIdx.x): each block's warps' sums, and in rank 0 every rank's
+// sums and the mbarrier they arrive on.
+template <typename T, int NV>
+struct ClusterSums {
+  T warp_sums[WARPS][NV];
+  T rank_sums[kMaxCluster][NV];  // rank 0's: every rank's sums, by rank
+  unsigned long long arrived;    // rank 0's: completes with the last rank's store
+};
+
+// Every thread of the cluster, before its loads: rank 0 sets up its
+// barrier, on which no block arrives before the cluster barrier that
+// cluster_sum waits for.
+template <typename T, int NV>
+__device__ __forceinline__ void cluster_sum_begin(ClusterSums<T, NV>& sh, int rank, int ranks) {
+  if (rank == 0 && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_address(&sh.arrived)),
+                 "r"(ranks)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+// Every thread of the cluster, after its loads, with its own sums `acc`:
+// true in rank 0's thread 0 alone, whose `acc` then holds the segment's
+// sums (a fixed shuffle tree per warp, the warps in order, the ranks in
+// order). The other blocks leave at once: none reads another's memory, and
+// rank 0 returns after every store into it has landed.
+template <typename T, int NV>
+__device__ __forceinline__ bool cluster_sum(ClusterSums<T, NV>& sh, T (&acc)[NV], int rank,
+                                            int ranks) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc[i] = add(acc[i], __shfl_down_sync(0xffffffffu, acc[i], off));
+  }
+  if (threadIdx.x % 32 == 0) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) sh.warp_sums[threadIdx.x / 32][i] = acc[i];
   }
   __syncthreads();
-  return last;
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+  if (threadIdx.x == 0) {  // this block's sums into rank 0's table, then its arrival there
+    T t[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) t[i] = sh.warp_sums[0][i];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) t[i] = add(t[i], sh.warp_sums[w][i]);
+    }
+    const unsigned to = cluster_address(&sh.rank_sums[rank][0], 0);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) cluster_store(to + i * sizeof(T), t[i]);
+    asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+                 ::"r"(cluster_address(&sh.arrived, 0))
+                 : "memory");
+  }
+  if (rank != 0 || threadIdx.x != 0) return false;
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(shared_address(&sh.arrived))
+        : "memory");
+  }
+#pragma unroll
+  for (int i = 0; i < NV; ++i) acc[i] = T(0);
+  for (int b = 0; b < ranks; ++b) {  // in rank order
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc[i] = add(acc[i], sh.rank_sums[b][i]);
+  }
+  return true;
 }
 
 template <typename T>
 __device__ __forceinline__ bool running(int s, const T* r2, const T* atol2, const int* stall,
                                         const uint8_t* active, int stall_limit) {
   const T v = r2[s];
-  return v > atol2[s] && isfinite(v) && stall[s] < stall_limit && active[s];
+  const bool finite = isfinite(v);
+  return (v > atol2[s]) & finite & (stall[s] < stall_limit) & (active[s] != 0);
 }
 
-// Launch 1: pAp per segment; the last block of each segment sets alpha,
+template <typename T>
+struct AlphaArgs {
+  const T *p, *Ap, *rz, *r2, *atol2;
+  const int *stall, *k;
+  const uint8_t* active;
+  T* alpha;
+  uint8_t *run, *lane;
+  int P, Ns, span, max_iters, stall_limit;
+};
+
+// Launch 1: pAp per segment; rank 0 of the segment's cluster sets alpha,
 // the segment's run flag and (segment 0) the lane flag from the state at
 // the start of the body.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) alpha_kernel(
-    const T* __restrict__ p, const T* __restrict__ Ap, const T* __restrict__ rz,
-    const T* __restrict__ r2, const T* __restrict__ atol2, const int* __restrict__ stall,
-    const uint8_t* __restrict__ active, const int* __restrict__ k, T* __restrict__ alpha,
-    uint8_t* __restrict__ run, uint8_t* __restrict__ lane, T* partials, int* tickets, int P,
-    int Ns, int G, int max_iters, int stall_limit) {
-  const int s = blockIdx.x / G, g = blockIdx.x - s * G;
-  const int l = s / P, q = s - l * P;
-  const long long PN = (long long)P * Ns;
-  const long long base = (long long)l * 2 * PN + (long long)q * Ns;
-  const int chunk = (Ns + G - 1) / G;
-  const int n0 = g * chunk, n1 = min(Ns, n0 + chunk);
+//
+// Grid (cluster, L P) in clusters of (cluster, 1, 1): the cluster of
+// segment s = l P + q, and its block of rank b the nodes [b span, min(Ns,
+// (b + 1) span)). A thread takes V consecutive nodes of both components
+// of p and Ap at a time (V > 1: span and Ns are multiples of V and the
+// pointers 16-byte aligned).
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS) alpha_kernel(AlphaArgs<T> a) {
+  __shared__ ClusterSums<T, 1> sums;
+  const int rank = blockIdx.x, ranks = gridDim.x, s = blockIdx.y;
+  const int l = s / a.P, q = s - l * a.P;
+  const long long PN = (long long)a.P * a.Ns;
+  const long long base = (long long)l * 2 * PN + (long long)q * a.Ns;
+  const int n0 = rank * a.span, n1 = min(a.Ns, n0 + a.span);
+  cluster_sum_begin(sums, rank, ranks);
+  // the epilogue's scalars, read now so that the launch's tail waits on none
+  bool run_s = false, lane_l = false;
+  T rz_s = T(0);
+  if (rank == 0 && threadIdx.x == 0) {
+    run_s = running(s, a.r2, a.atol2, a.stall, a.active, a.stall_limit);
+    rz_s = a.rz[s];
+    if (q == 0) {
+      bool any = false;
+      for (int j = 0; j < a.P; ++j) {
+        any |= running(l * a.P + j, a.r2, a.atol2, a.stall, a.active, a.stall_limit);
+      }
+      lane_l = any & (a.k[l] < a.max_iters);
+    }
+  }
   T acc[1] = {T(0)};
-  for (int n = n0 + threadIdx.x; n < n1; n += THREADS) {
-    const long long i = base + n;
-    acc[0] = add(acc[0], mul(p[i], Ap[i]));
-    acc[0] = add(acc[0], mul(p[i + PN], Ap[i + PN]));
+  for (int n = n0 + threadIdx.x * V; n < n1; n += THREADS * V) {
+    const long long i0 = base + n, i1 = i0 + PN;
+    T p0[V], p1[V], ap0[V], ap1[V];
+    load_vec<T, V>(a.p + i0, p0);
+    load_vec<T, V>(a.p + i1, p1);
+    load_vec<T, V>(a.Ap + i0, ap0);
+    load_vec<T, V>(a.Ap + i1, ap1);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[0] = add(add(acc[0], mul(p0[j], ap0[j])), mul(p1[j], ap1[j]));
   }
-  block_sum<T, 1>(acc);
-  if (threadIdx.x == 0) partials[(long long)s * G + g] = acc[0];
-  if (!last_of_segment(tickets + s, G) || threadIdx.x != 0) return;
-  __threadfence();
-  T pAp = T(0);
-  for (int j = 0; j < G; ++j) pAp = add(pAp, __ldcg(partials + (long long)s * G + j));
-  tickets[s] = 0;
-  const bool run_s = running(s, r2, atol2, stall, active, stall_limit);
-  alpha[s] = run_s ? rz[s] / (pAp != T(0) ? pAp : T(1)) : T(0);
-  run[s] = run_s;
-  if (q == 0) {
-    bool any = false;
-    for (int j = 0; j < P; ++j) any = any || running(l * P + j, r2, atol2, stall, active, stall_limit);
-    lane[l] = any && k[l] < max_iters;
-  }
+  if (!cluster_sum(sums, acc, rank, ranks)) return;
+  const T pAp = acc[0];
+  a.alpha[s] = run_s ? rz_s / (pAp != T(0) ? pAp : T(1)) : T(0);
+  a.run[s] = run_s;
+  if (q == 0) a.lane[l] = lane_l;
 }
 
 // Launch 2: x += alpha p, r -= alpha Ap on the lanes that run.
@@ -216,64 +342,6 @@ __global__ void __launch_bounds__(THREADS) jacobi_restrict_kernel(
   }
 }
 
-// values of T in a 16-byte load
-template <typename T>
-constexpr int kVec = 16 / (int)sizeof(T);
-
-// V consecutive values at p (16 bytes, or one value for V = 1) in one access
-template <typename T, int V>
-struct Vec;
-template <> struct Vec<float, 4> { using type = float4; };
-template <> struct Vec<double, 2> { using type = double2; };
-template <> struct Vec<int, 4> { using type = int4; };
-template <> struct Vec<int, 2> { using type = int2; };
-template <typename T> struct Vec<T, 1> { using type = T; };
-
-template <typename T, int V>
-__device__ __forceinline__ void load_vec(const T* p, T* out) {
-  union {
-    typename Vec<T, V>::type v;
-    T s[V];
-  } u;
-  u.v = *reinterpret_cast<const typename Vec<T, V>::type*>(p);
-#pragma unroll
-  for (int j = 0; j < V; ++j) out[j] = u.s[j];
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_vec(T* p, const T* in) {
-  union {
-    typename Vec<T, V>::type v;
-    T s[V];
-  } u;
-#pragma unroll
-  for (int j = 0; j < V; ++j) u.s[j] = in[j];
-  *reinterpret_cast<typename Vec<T, V>::type*>(p) = u.v;
-}
-
-constexpr int kMaxCluster = 16;  // blocks of prolong_dots' cluster at most (non-portable over 8)
-
-__device__ __forceinline__ unsigned shared_address(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// the address of `local` (this block's shared memory) in the block of rank
-// `rank` of this cluster
-__device__ __forceinline__ unsigned cluster_address(const void* local, unsigned rank) {
-  unsigned remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(shared_address(local)), "r"(rank));
-  return remote;
-}
-
-__device__ __forceinline__ void cluster_store(unsigned addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
-}
-__device__ __forceinline__ void cluster_store(unsigned addr, double v) {
-  asm volatile("st.shared::cluster.f64 [%0], %1;\n" ::"r"(addr), "d"(v) : "memory");
-}
-
 template <typename T>
 struct ProlongArgs {
   const T* zj;          // may be null: 0
@@ -295,41 +363,32 @@ struct ProlongArgs {
 // the segment's cluster runs the epilogue: beta, and on a lane that runs
 // rz, r2, best_r2, stall and (segment 0) k.
 //
-// Grid (cluster, L P) in clusters of (cluster, 1, 1): the cluster of
-// segment s = l P + q, and its block of rank b the nodes [b span, min(Ns,
-// (b + 1) span)). A thread takes V consecutive nodes at a time (V > 1:
-// span and Ns are multiples of V and the pointers 16-byte aligned), every
-// input loaded before the coarse term's gather by aggregate id.
+// Grid (cluster, L P) in clusters of (cluster, 1, 1), laid out as alpha's;
+// every input loaded before the coarse term's gather by aggregate id.
 template <typename T, int V>
 __global__ void __launch_bounds__(THREADS) prolong_dots_kernel(ProlongArgs<T> a) {
-  __shared__ T warp_sums[WARPS][2];
-  __shared__ T rank_sums[kMaxCluster][2];  // rank 0's: every rank's sums, by rank
-  __shared__ __align__(8) unsigned long long sums_in;  // rank 0's: completes with the last
+  __shared__ ClusterSums<T, 2> sums;
   const int rank = blockIdx.x, ranks = gridDim.x, s = blockIdx.y;
   const int l = s / a.P, q = s - l * a.P;
   const long long PN = (long long)a.P * a.Ns;
   const long long base = (long long)l * 2 * PN + (long long)q * a.Ns;
   const int n0 = rank * a.span, n1 = min(a.Ns, n0 + a.span);
-  const bool epilogue = a.with_state && rank == 0 && threadIdx.x == 0;
   // the epilogue's scalars, read now so that the launch's tail waits on none
   bool run_s = false, lane_l = false;
   T rz_old = T(0), best_s = T(0);
   int stall_s = 0, k_l = 0;
-  if (epilogue) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_address(&sums_in)),
-                 "r"(ranks)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    run_s = a.run[s];
-    lane_l = a.lane[l];
-    rz_old = a.rz[s];
-    best_s = a.best[s];
-    stall_s = a.stall[s];
-    if (q == 0) k_l = a.k[l];
+  if (a.with_state) {
+    cluster_sum_begin(sums, rank, ranks);
+    if (rank == 0 && threadIdx.x == 0) {
+      run_s = a.run[s];
+      lane_l = a.lane[l];
+      rz_old = a.rz[s];
+      best_s = a.best[s];
+      stall_s = a.stall[s];
+      if (q == 0) k_l = a.k[l];
+    }
   }
-  // waited for before any block arrives on rank 0's barrier: it is set up
-  if (a.with_state) asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
-  T acc0 = T(0), acc1 = T(0);
+  T acc[2] = {T(0), T(0)};
   for (int n = n0 + threadIdx.x * V; n < n1; n += THREADS * V) {
     const long long gn = (long long)q * a.Ns + n;  // node in the lane's PN
     const long long i0 = base + n, i1 = i0 + PN;
@@ -382,54 +441,13 @@ __global__ void __launch_bounds__(THREADS) prolong_dots_kernel(ProlongArgs<T> a)
     if (a.with_state) {
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        acc0 = add(add(acc0, mul(r0[j], z0[j])), mul(r1[j], z1[j]));
-        acc1 = add(add(acc1, mul(r0[j], r0[j])), mul(r1[j], r1[j]));
+        acc[0] = add(add(acc[0], mul(r0[j], z0[j])), mul(r1[j], z1[j]));
+        acc[1] = add(add(acc[1], mul(r0[j], r0[j])), mul(r1[j], r1[j]));
       }
     }
   }
-  if (!a.with_state) return;
-  // the block's sums: a fixed shuffle tree per warp, then the warps in order
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc0 = add(acc0, __shfl_down_sync(0xffffffffu, acc0, off));
-    acc1 = add(acc1, __shfl_down_sync(0xffffffffu, acc1, off));
-  }
-  const int warp = threadIdx.x / 32;
-  if (threadIdx.x % 32 == 0) {
-    warp_sums[warp][0] = acc0;
-    warp_sums[warp][1] = acc1;
-  }
-  __syncthreads();
-  asm volatile("barrier.cluster.wait;\n" ::: "memory");
-  if (threadIdx.x == 0) {  // this block's sums into rank 0's table, then its arrival there
-    T t0 = warp_sums[0][0], t1 = warp_sums[0][1];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) {
-      t0 = add(t0, warp_sums[w][0]);
-      t1 = add(t1, warp_sums[w][1]);
-    }
-    const unsigned to = cluster_address(&rank_sums[rank][0], 0);
-    cluster_store(to, t0);
-    cluster_store(to + sizeof(T), t1);
-    asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
-                 ::"r"(cluster_address(&sums_in, 0))
-                 : "memory");
-  }
-  if (!epilogue) return;  // no block reads another's memory: the others may leave
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(shared_address(&sums_in))
-        : "memory");
-  }
-  T rz_new = T(0), r2_new = T(0);
-  for (int b = 0; b < ranks; ++b) {  // in rank order
-    rz_new = add(rz_new, rank_sums[b][0]);
-    r2_new = add(r2_new, rank_sums[b][1]);
-  }
+  if (!a.with_state || !cluster_sum(sums, acc, rank, ranks)) return;
+  const T rz_new = acc[0], r2_new = acc[1];
   a.beta[s] = run_s ? rz_new / (rz_old != T(0) ? rz_old : T(1)) : T(0);
   if (lane_l) {
     const bool improved = run_s && r2_new < mul(T(0.9), best_s);
@@ -442,20 +460,35 @@ __global__ void __launch_bounds__(THREADS) prolong_dots_kernel(ProlongArgs<T> a)
 }
 
 // Launch 5: p = z + beta p on the segments that run, in the lanes that run.
-template <typename T>
+//
+// Grid (blocks, L P): block b of segment s = l P + q takes the nodes [b
+// span, min(Ns, (b + 1) span)), a thread V consecutive nodes of both
+// components at a time (V > 1: span and Ns multiples of V, the pointers
+// 16-byte aligned).
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS) update_p_kernel(
     T* __restrict__ p, const T* __restrict__ z, const T* __restrict__ beta,
-    const uint8_t* __restrict__ run, const uint8_t* __restrict__ lane, long long total, int P,
-    int Ns) {
-  const long long PN = (long long)P * Ns, ndof = 2 * PN;
-  for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x; i < total;
-       i += (long long)gridDim.x * THREADS) {
-    const long long l = i / ndof;
-    if (!lane[l]) continue;
-    const long long j = i - l * ndof;
-    const long long s = l * P + (int)((j % PN) / Ns);
-    if (!run[s]) continue;
-    p[i] = add(z[i], mul(beta[s], p[i]));
+    const uint8_t* __restrict__ run, const uint8_t* __restrict__ lane, int P, int Ns, int span) {
+  const int s = blockIdx.y, l = s / P, q = s - l * P;
+  if (!lane[l] || !run[s]) return;  // the whole block: a stopped segment moves no vector
+  const T b = beta[s];
+  const long long PN = (long long)P * Ns;
+  const long long base = (long long)l * 2 * PN + (long long)q * Ns;
+  const int n1 = min(Ns, ((int)blockIdx.x + 1) * span);
+  for (int n = blockIdx.x * span + threadIdx.x * V; n < n1; n += THREADS * V) {
+    const long long i0 = base + n, i1 = i0 + PN;
+    T z0[V], z1[V], p0[V], p1[V];
+    load_vec<T, V>(z + i0, z0);
+    load_vec<T, V>(z + i1, z1);
+    load_vec<T, V>(p + i0, p0);
+    load_vec<T, V>(p + i1, p1);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      p0[j] = add(z0[j], mul(b, p0[j]));
+      p1[j] = add(z1[j], mul(b, p1[j]));
+    }
+    store_vec<T, V>(p + i0, p0);
+    store_vec<T, V>(p + i1, p1);
   }
 }
 
@@ -464,15 +497,43 @@ int elementwise_blocks(long long total) {
   return (int)(blocks < (1 << 20) ? blocks : (1 << 20));
 }
 
+// Launches `kernel` on a grid of (cluster, segments) blocks of THREADS in
+// clusters of (cluster, 1, 1) (over 8 needs the non-portable attribute
+// that load_kernels sets).
+template <typename Args>
+int launch_clusters(void (*kernel)(Args), int cluster, int segments, cudaStream_t stream,
+                    const Args& args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, segments);
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// true where `count` ranges of `span` nodes tile Ns nodes as the kernels
+// take them: each range with nodes, V values a load (kVec<T> or 1)
 template <typename T>
-int launch_alpha(void* p, void* Ap, void* rz, void* r2, void* atol2, void* stall, void* active,
-                 void* k, void* alpha, void* run, void* lane, void* partials, void* tickets, int L,
-                 int P, int Ns, int G, int max_iters, int stall_limit, cudaStream_t stream) {
-  alpha_kernel<T><<<L * P * G, THREADS, 0, stream>>>(
-      (const T*)p, (const T*)Ap, (const T*)rz, (const T*)r2, (const T*)atol2, (const int*)stall,
-      (const uint8_t*)active, (const int*)k, (T*)alpha, (uint8_t*)run, (uint8_t*)lane,
-      (T*)partials, (int*)tickets, P, Ns, G, max_iters, stall_limit);
-  return (int)cudaGetLastError();
+bool valid_plan(int Ns, int count, int span, int vec) {
+  return count >= 1 && (vec == 1 || vec == kVec<T>) && span > 0 &&
+         (long long)count * span >= Ns && (long long)(count - 1) * span < Ns &&
+         span % vec == 0 && Ns % vec == 0;
+}
+
+template <typename T>
+int launch_alpha(const AlphaArgs<T>& a, int L, int cluster, int vec, cudaStream_t stream) {
+  if (!valid_plan<T>(a.Ns, cluster, a.span, vec) || cluster > kMaxCluster || L * a.P > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_clusters(vec == 1 ? alpha_kernel<T, 1> : alpha_kernel<T, kVec<T>>, cluster,
+                         L * a.P, stream, a);
 }
 
 template <typename T>
@@ -496,38 +557,24 @@ int launch_jacobi_restrict(void* r, void* block_inv, void* arms, void* members, 
   return (int)cudaGetLastError();
 }
 
-// A cluster of `cluster` blocks (1 to 16; over 8 needs the non-portable
-// attribute that load_kernels sets) per segment, `vec` values a load:
-// kVec<T> or 1.
 template <typename T>
 int launch_prolong_dots(const ProlongArgs<T>& a, int L, int cluster, int vec,
                         cudaStream_t stream) {
-  if (cluster < 1 || cluster > kMaxCluster || (vec != 1 && vec != kVec<T>) ||
-      (long long)cluster * a.span < a.Ns || a.span % vec != 0 || a.Ns % vec != 0) {
+  if (!valid_plan<T>(a.Ns, cluster, a.span, vec) || cluster > kMaxCluster || L * a.P > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, L * a.P);
-  cfg.blockDim = dim3(THREADS);
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = vec == 1 ? cudaLaunchKernelEx(&cfg, prolong_dots_kernel<T, 1>, a)
-                                   : cudaLaunchKernelEx(&cfg, prolong_dots_kernel<T, kVec<T>>, a);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  return launch_clusters(vec == 1 ? prolong_dots_kernel<T, 1> : prolong_dots_kernel<T, kVec<T>>,
+                         cluster, L * a.P, stream, a);
 }
 
+// `blocks` blocks of `span` nodes per segment, `vec` values a load
 template <typename T>
 int launch_update_p(void* p, void* z, void* beta, void* run, void* lane, int L, int P, int Ns,
-                    cudaStream_t stream) {
-  const long long total = (long long)L * 2 * P * Ns;
-  update_p_kernel<T><<<elementwise_blocks(total), THREADS, 0, stream>>>(
-      (T*)p, (const T*)z, (const T*)beta, (const uint8_t*)run, (const uint8_t*)lane, total, P, Ns);
+                    int blocks, int span, int vec, cudaStream_t stream) {
+  if (!valid_plan<T>(Ns, blocks, span, vec) || L * P > 65535) return (int)cudaErrorInvalidValue;
+  auto kernel = vec == 1 ? update_p_kernel<T, 1> : update_p_kernel<T, kVec<T>>;
+  kernel<<<dim3(blocks, L * P), THREADS, 0, stream>>>(
+      (T*)p, (const T*)z, (const T*)beta, (const uint8_t*)run, (const uint8_t*)lane, P, Ns, span);
   return (int)cudaGetLastError();
 }
 
@@ -535,16 +582,18 @@ template <typename T>
 int load_kernels() {
   cudaFuncAttributes attr;
   const void* kernels[] = {
-      (const void*)alpha_kernel<T>, (const void*)update_xr_kernel<T>,
-      (const void*)jacobi_restrict_kernel<T>, (const void*)prolong_dots_kernel<T, 1>,
-      (const void*)prolong_dots_kernel<T, kVec<T>>, (const void*)update_p_kernel<T>,
+      (const void*)alpha_kernel<T, 1>, (const void*)alpha_kernel<T, kVec<T>>,
+      (const void*)update_xr_kernel<T>, (const void*)jacobi_restrict_kernel<T>,
+      (const void*)prolong_dots_kernel<T, 1>, (const void*)prolong_dots_kernel<T, kVec<T>>,
+      (const void*)update_p_kernel<T, 1>, (const void*)update_p_kernel<T, kVec<T>>,
   };
   for (const void* kernel : kernels) {
     const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return (int)err;
   }
-  // clusters of prolong_dots over the portable 8 blocks
-  const void* clustered[] = {(const void*)prolong_dots_kernel<T, 1>,
+  // clusters over the portable 8 blocks
+  const void* clustered[] = {(const void*)alpha_kernel<T, 1>, (const void*)alpha_kernel<T, kVec<T>>,
+                             (const void*)prolong_dots_kernel<T, 1>,
                              (const void*)prolong_dots_kernel<T, kVec<T>>};
   for (const void* kernel : clustered) {
     const cudaError_t err =
@@ -561,12 +610,30 @@ int load_kernels() {
 extern "C" {
 
 int fea_cg_alpha(int dbl, void* p, void* Ap, void* rz, void* r2, void* atol2, void* stall,
-                 void* active, void* k, void* alpha, void* run, void* lane, void* partials,
-                 void* tickets, int L, int P, int Ns, int G, int max_iters, int stall_limit,
-                 void* stream) {
-  auto launch = dbl ? launch_alpha<double> : launch_alpha<float>;
-  return launch(p, Ap, rz, r2, atol2, stall, active, k, alpha, run, lane, partials, tickets, L, P,
-                Ns, G, max_iters, stall_limit, (cudaStream_t)stream);
+                 void* active, void* k, void* alpha, void* run, void* lane, int L, int P, int Ns,
+                 int cluster, int span, int vec, int max_iters, int stall_limit, void* stream) {
+  auto launch = [&](auto zero) {
+    using T = decltype(zero);
+    AlphaArgs<T> a;
+    a.p = (const T*)p;
+    a.Ap = (const T*)Ap;
+    a.rz = (const T*)rz;
+    a.r2 = (const T*)r2;
+    a.atol2 = (const T*)atol2;
+    a.stall = (const int*)stall;
+    a.k = (const int*)k;
+    a.active = (const uint8_t*)active;
+    a.alpha = (T*)alpha;
+    a.run = (uint8_t*)run;
+    a.lane = (uint8_t*)lane;
+    a.P = P;
+    a.Ns = Ns;
+    a.span = span;
+    a.max_iters = max_iters;
+    a.stall_limit = stall_limit;
+    return launch_alpha<T>(a, L, cluster, vec, (cudaStream_t)stream);
+  };
+  return dbl ? launch(0.0) : launch(0.0f);
 }
 
 int fea_cg_update_xr(int dbl, void* x, void* r, void* p, void* Ap, void* alpha, void* lane, int L,
@@ -614,9 +681,9 @@ int fea_cg_prolong_dots(int dbl, void* zj, void* zc, void* agg, void* arms, void
 }
 
 int fea_cg_update_p(int dbl, void* p, void* z, void* beta, void* run, void* lane, int L, int P,
-                    int Ns, void* stream) {
+                    int Ns, int blocks, int span, int vec, void* stream) {
   auto launch = dbl ? launch_update_p<double> : launch_update_p<float>;
-  return launch(p, z, beta, run, lane, L, P, Ns, (cudaStream_t)stream);
+  return launch(p, z, beta, run, lane, L, P, Ns, blocks, span, vec, (cudaStream_t)stream);
 }
 
 // Loads every kernel into the current context, so that none loads lazily

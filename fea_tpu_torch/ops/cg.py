@@ -19,8 +19,9 @@ updated in place, so a captured block replays on the same memory.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (a dtype other than float32 / float64, another device,
-a non-contiguous tensor; for `prolong_dots` where its node count takes
-16-byte loads, a vector that does not start on a 16-byte boundary); it takes its plain version (`*_reference`, with
+a non-contiguous tensor; for `cg_alpha`, `prolong_dots` and `cg_update_p`
+where the node count takes 16-byte loads, a vector that does not start on
+a 16-byte boundary); it takes its plain version (`*_reference`, with
 the same signature: the arithmetic of the torch ops the loop ran before,
 written into the state in place) only where the tensors lie on the CPU. Every kernel launch adds one to its wrapper's
 `launches`; a launch recorded in a CUDA graph counts at each replay of it.
@@ -38,20 +39,24 @@ from ._build import build_library
 
 DTYPES = (torch.float32, torch.float64)
 THREADS = 256  # a block of every kernel (csrc/cg_segmented.cu)
-# nodes of a segment that one block of cg_alpha's reduction sums: a
-# segment's dot products are summed in an order set by its node count
-# alone, the same in every chunk (16 blocks a segment at the production
-# bucket, 256 over its 16 segments)
-NODES_PER_BLOCK = 512
-# prolong_dots: a thread-block cluster per segment, a block per
-# PROLONG_NODES nodes (a 16-byte load of 4 f32 nodes a thread) up to
-# PROLONG_CLUSTER blocks (over 8, the portable size, by the non-portable
-# attribute): 8 at the production bucket, 16 from 16,384 nodes, where a
-# chunk of few segments at 8 would leave most of the card idle
-# (tools/sweep_prolong_dots.py)
+# prolong_dots and cg_alpha: a thread-block cluster per segment, a block
+# per PROLONG_NODES nodes (a 16-byte load of 4 f32 nodes a thread) up to
+# PROLONG_CLUSTER blocks for prolong_dots (over 8, the portable size, by
+# the non-portable attribute): 8 at the production bucket, 16 from 16,384
+# nodes, where a chunk of few segments at 8 would leave most of the card
+# idle; up to ALPHA_CLUSTER for cg_alpha, which reads 2 vectors a node
+# where prolong_dots reads 4-5: at 16 segments of 32,768 or 131,072 nodes
+# 8 blocks a segment beat 16 (tools/sweep_prolong_dots.py, PERF.md). A
+# segment's sums are taken in an order set by its node count alone, the
+# same in every chunk.
 PROLONG_CLUSTER = 16
+ALPHA_CLUSTER = 8
 PROLONG_NODES = 4 * THREADS
-ALIGN = 16  # bytes: the alignment of every vector prolong_dots and band_matvec load
+# cg_update_p: a block per UPDATE_P_NODES nodes of a segment (a 16-byte
+# load of 4 f32 nodes a thread), 128 blocks over phase 9's chunk (16
+# segments of 8,192 nodes) on the card's 132 SMs
+UPDATE_P_NODES = 4 * THREADS
+ALIGN = 16  # bytes: the alignment of every vector the CG kernels and band_matvec load
 
 
 def build() -> Path:
@@ -64,11 +69,11 @@ def _library():
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
-        "fea_cg_alpha": [i] + [p] * 13 + [i] * 6 + [p],
+        "fea_cg_alpha": [i] + [p] * 11 + [i] * 8 + [p],
         "fea_cg_update_xr": [i] + [p] * 6 + [i] * 3 + [p],
         "fea_cg_jacobi_restrict": [i] + [p] * 6 + [i, ll, i, i, p],
         "fea_cg_prolong_dots": [i] + [p] * 7 + [i] + [p] * 8 + [i] * 7 + [p],
-        "fea_cg_update_p": [i] + [p] * 5 + [i] * 3 + [p],
+        "fea_cg_update_p": [i] + [p] * 5 + [i] * 6 + [p],
     }
     for name, argtypes in signatures.items():
         getattr(lib, name).argtypes = argtypes
@@ -96,24 +101,33 @@ def _raise_on(err, what):
         raise RuntimeError(f"CG kernel {what} failed: " + _library().fea_cuda_error_string(err).decode())
 
 
-def _groups(seg_nodes: int) -> int:
-    """Blocks per segment of cg_alpha's reduction."""
-    return -(-seg_nodes // NODES_PER_BLOCK)
-
-
-def prolong_plan(seg_nodes: int):
+def prolong_plan(seg_nodes: int, max_cluster: int = PROLONG_CLUSTER):
     """(cluster, span) of `prolong_dots` over segments of `seg_nodes`
     nodes: the cluster's block of rank b takes the nodes [b span, min(Ns,
     (b + 1) span)), span a multiple of 4 (a 16-byte load of f32, two of
     f64). Every rank gets nodes; the ranges tile the segment once."""
-    cluster = min(PROLONG_CLUSTER, -(-seg_nodes // PROLONG_NODES))
+    cluster = min(max_cluster, -(-seg_nodes // PROLONG_NODES))
     span = -(-seg_nodes // cluster)
     return cluster, -(-span // 4) * 4
 
 
-def prolong_vector(seg_nodes: int, dtype) -> int:
-    """Values of `prolong_dots`' loads: 16 bytes where every segment
-    starts on a multiple of them, else one (a ragged node count)."""
+def alpha_plan(seg_nodes: int):
+    """(cluster, span) of `cg_alpha`: `prolong_plan`'s layout, clusters of
+    at most ALPHA_CLUSTER blocks."""
+    return prolong_plan(seg_nodes, ALPHA_CLUSTER)
+
+
+def update_p_plan(seg_nodes: int):
+    """(blocks, span) of `cg_update_p` per segment of `seg_nodes` nodes:
+    block b takes the nodes [b span, min(Ns, (b + 1) span)), span a
+    multiple of 4; the ranges tile the segment once."""
+    return -(-seg_nodes // UPDATE_P_NODES), UPDATE_P_NODES
+
+
+def vector_width(seg_nodes: int, dtype) -> int:
+    """Values of the CG kernels' vector loads (`cg_alpha`, `prolong_dots`,
+    `cg_update_p`): 16 bytes where every segment starts on a multiple of
+    them, else one (a ragged node count)."""
     vec = ALIGN // (torch.finfo(dtype).bits // 8)
     return vec if seg_nodes % vec == 0 else 1
 
@@ -135,8 +149,8 @@ class SegmentedState:
     of Ns nodes, in tensors allocated once and updated in place: vectors x,
     r, p, z (L, 2 * P * Ns); per segment rz, r2, best (best_r2), atol2,
     stall, active, and the body's alpha, beta and run flags (L, P); per lane
-    k and the lane flag (L,); cg_alpha's partial sums and tickets (the
-    kernel resets each ticket it uses)."""
+    k and the lane flag (L,). The kernels keep no scratch in device
+    memory."""
 
     def __init__(self, lanes: int, n_seg: int, seg_nodes: int, dtype, device,
                  max_iters: int, stall_limit: int):
@@ -145,7 +159,6 @@ class SegmentedState:
         device = torch.device(device)
         self.P, self.Ns = n_seg, seg_nodes
         self.max_iters, self.stall_limit = max_iters, stall_limit
-        self.groups = _groups(seg_nodes)
 
         def zeros(shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=device)
@@ -157,11 +170,9 @@ class SegmentedState:
         self.active, self.run = zeros(seg, torch.bool), zeros(seg, torch.bool)
         self.k = zeros(lanes, torch.int32)
         self.lane = zeros(lanes, torch.bool)
-        self.partials = zeros(lanes * n_seg * self.groups * 2)
-        self.tickets = zeros(lanes * n_seg, torch.int32)
 
     TENSORS = ("x", "r", "p", "z", "rz", "r2", "best", "atol2", "alpha", "beta", "stall",
-               "active", "run", "k", "lane", "partials", "tickets")
+               "active", "run", "k", "lane")
 
     def clone(self):
         """A state with copies of every tensor (to hold one launch of the
@@ -232,10 +243,9 @@ def _state_tensors(state, *names):
     shapes = {"x": (L, 2 * P * state.Ns), "r": (L, 2 * P * state.Ns), "p": (L, 2 * P * state.Ns),
               "z": (L, 2 * P * state.Ns), "rz": (L, P), "r2": (L, P), "best": (L, P),
               "atol2": (L, P), "alpha": (L, P), "beta": (L, P), "stall": (L, P),
-              "active": (L, P), "run": (L, P), "k": (L,), "lane": (L,),
-              "partials": (L * P * state.groups * 2,), "tickets": (L * P,)}
-    types = {"stall": torch.int32, "k": torch.int32, "tickets": torch.int32,
-             "active": torch.bool, "run": torch.bool, "lane": torch.bool}
+              "active": (L, P), "run": (L, P), "k": (L,), "lane": (L,)}
+    types = {"stall": torch.int32, "k": torch.int32, "active": torch.bool, "run": torch.bool,
+             "lane": torch.bool}
     return {f"state.{n}": (getattr(state, n), types.get(n), shapes[n]) for n in names}
 
 
@@ -332,16 +342,19 @@ def cg_alpha(state, Ap):
     _check(state.x.device, state.x.dtype, {
         "Ap": (Ap, None, state.p.shape),
         **_state_tensors(state, "p", "rz", "r2", "atol2", "stall", "active", "k", "alpha", "run",
-                         "lane", "partials", "tickets")})
-    L = state.k.shape[0]
+                         "lane")})
+    vec = vector_width(state.Ns, state.x.dtype)
+    if vec > 1:
+        _check_aligned("cg_alpha", {"state.p": state.p, "Ap": Ap})
+    cluster, span = alpha_plan(state.Ns)
     lib = load(state.x.device.index or 0)
     with torch.cuda.device(state.x.device):
         err = lib.fea_cg_alpha(
             int(state.x.dtype == torch.float64), *map(_ptr, (
                 state.p, Ap, state.rz, state.r2, state.atol2, state.stall, state.active, state.k,
-                state.alpha, state.run, state.lane, state.partials, state.tickets)),
-            L, state.P, state.Ns, state.groups, state.max_iters, state.stall_limit,
-            _stream(state.x.device))
+                state.alpha, state.run, state.lane)),
+            state.k.shape[0], state.P, state.Ns, cluster, span, vec, state.max_iters,
+            state.stall_limit, _stream(state.x.device))
     _raise_on(err, "cg_alpha launch")
     _count(cg_alpha)
 
@@ -488,7 +501,7 @@ def prolong_dots(zj, zc, agg, arms, free, z, n_seg, state=None):
         raise ValueError(f"{ndof} dofs do not split into {n_seg} segments of two components")
     s = state
     Ns = ndof // (2 * n_seg)
-    vec = prolong_vector(Ns, z.dtype)
+    vec = vector_width(Ns, z.dtype)
     if vec > 1:
         _check_aligned("prolong_dots", {"z": z, "zj": zj, "agg": agg, "arms": arms,
                                         "free": free, "state.r": None if s is None else s.r})
@@ -523,12 +536,16 @@ def cg_update_p(state):
     if state.x.device.type == "cpu":
         return cg_update_p_reference(state)
     _check(state.x.device, state.x.dtype, _state_tensors(state, "p", "z", "beta", "run", "lane"))
+    vec = vector_width(state.Ns, state.x.dtype)
+    if vec > 1:
+        _check_aligned("cg_update_p", {"state.p": state.p, "state.z": state.z})
+    blocks, span = update_p_plan(state.Ns)
     lib = load(state.x.device.index or 0)
     with torch.cuda.device(state.x.device):
         err = lib.fea_cg_update_p(
             int(state.x.dtype == torch.float64),
             *map(_ptr, (state.p, state.z, state.beta, state.run, state.lane)),
-            state.k.shape[0], state.P, state.Ns, _stream(state.x.device))
+            state.k.shape[0], state.P, state.Ns, blocks, span, vec, _stream(state.x.device))
     _raise_on(err, "cg_update_p launch")
     _count(cg_update_p)
 

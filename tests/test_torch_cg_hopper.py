@@ -1,14 +1,20 @@
-"""The CG loop's two costliest kernels as they are laid out for Hopper:
-`ops.cg.prolong_dots` (a thread-block cluster per segment,
-`csrc/cg_segmented.cu`) and `ops.band.band_matvec` (the tables staged in
-shared memory up to each slice's widest row, `csrc/band_matvec.cu`).
+"""The CG loop's kernels as they are laid out for Hopper:
+`ops.cg.prolong_dots` and `ops.cg.cg_alpha` (a thread-block cluster per
+segment), `ops.cg.cg_update_p` (a grid of blocks per segment, 16-byte
+loads; all three in `csrc/cg_segmented.cu`) and `ops.band.band_matvec`
+(the tables staged in shared memory up to each slice's widest row,
+`csrc/band_matvec.cu`).
 
 On the CPU, what the host decides for the kernels:
-- `prolong_plan` at every node bucket of datagen (`SHAPE_BUCKETS`) and at
-  ragged node counts: at most 16 blocks a cluster, every block's node range
-  non-empty, the ranges tiling the segment exactly once, each starting on
-  a multiple of a 16-byte load; `prolong_vector` takes 16-byte loads where
-  the node count allows them;
+- `prolong_plan` and `alpha_plan` at every node bucket of datagen
+  (`SHAPE_BUCKETS`) and at ragged node counts: at most 16 blocks a
+  cluster, every block's node range non-empty, the ranges tiling the
+  segment exactly once, each starting on a multiple of a 16-byte load;
+  `update_p_plan` the same with blocks of one grid, and each thread's
+  loads (V nodes at a time) covering every node once; at phase 9's chunk
+  both fill 128 of the card's 132 SMs; `vector_width` takes 16-byte
+  loads where the node count allows them; `SegmentedState` allocates the
+  loop's tensors and no scratch;
 - `band_tables`' width table (`fem.banded.slice_widths`) equals the widest
   row of each slice of the compacted band on the 3-plate chunk of tests/test_torch_flatgroup.py
   (plates of three sizes) and on random ragged tables;
@@ -29,11 +35,15 @@ the state, its rz / r2 / beta / best within 1e-5 of their span in f32
 (1e-12 in f64; at the largest bucket, whose random segments' sums lie a
 few ulps apart, of each value's size), its flags and counters equal; the
 band kernel
-within 1e-5 of y's span of its plain version. Each kernel repeats its bits
-over 50 launches; both replayed from a CUDA graph give the bits of their
-launches, counted at each replay; the wrappers raise on CPU, bf16,
-non-contiguous and misaligned inputs (`prolong_dots` on a misaligned
-vector only where its node count takes 16-byte loads).
+within 1e-5 of y's span of its plain version. `cg_alpha` and `cg_update_p`
+against their plain versions at a ragged node count, the production chunk
+and 2 lanes of 4 segments of the largest bucket, f32 and f64, with a
+stopped segment and a stopped lane: alpha within 1e-5 of its span (1e-12
+in f64), the run and lane flags equal, p bit for bit. Each kernel repeats
+its bits over 50 launches; replayed from a CUDA graph they give the bits of
+their launches, counted at each replay; the wrappers raise on CPU, bf16,
+non-contiguous and misaligned inputs (on a misaligned vector only where
+the node count takes 16-byte loads).
 """
 
 import numpy as np
@@ -71,14 +81,83 @@ def test_prolong_plan_tiles_the_segment_once(seg_nodes):
         assert cluster == cg.PROLONG_CLUSTER
 
 
+def thread_starts(n0, n1, vec):
+    """The first nodes of a block's loads over [n0, n1), V = vec at a
+    time: a thread t takes n0 + t V, then every THREADS V nodes on."""
+    starts = [n0 + t * vec + i * cg.THREADS * vec
+              for t in range(cg.THREADS) for i in range(-(-(n1 - n0) // (cg.THREADS * vec)))]
+    return [n for n in starts if n < n1]
+
+
+def assert_loads_cover(seg_nodes, blocks):
+    """Every node of the segment loaded exactly once by the blocks' threads,
+    at every vector width the node count takes; no load past a block's
+    range."""
+    for dtype in (torch.float32, torch.float64):
+        vec = cg.vector_width(seg_nodes, dtype)
+        seen = np.zeros(seg_nodes, np.int64)
+        for n0, n1 in blocks:
+            assert n0 % vec == 0
+            for n in thread_starts(n0, n1, vec):
+                assert n + vec <= n1
+                seen[n:n + vec] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("seg_nodes", SHAPE_BUCKETS + RAGGED_NODES)
+def test_alpha_plan_tiles_the_segment_once(seg_nodes):
+    cluster, span = cg.alpha_plan(seg_nodes)
+    blocks = [(b * span, min(seg_nodes, (b + 1) * span)) for b in range(cluster)]
+    assert 1 <= cluster <= cg.ALPHA_CLUSTER <= 16 and span % 4 == 0
+    if seg_nodes >= cg.ALPHA_CLUSTER * cg.PROLONG_NODES:
+        assert cluster == cg.ALPHA_CLUSTER
+    assert blocks[0][0] == 0 and blocks[-1][1] == seg_nodes
+    for (_, a1), (b0, _) in zip(blocks, blocks[1:]):
+        assert a1 == b0
+    assert all(n1 > n0 for n0, n1 in blocks)  # no rank idles
+    assert_loads_cover(seg_nodes, blocks)
+
+
+@pytest.mark.parametrize("seg_nodes", SHAPE_BUCKETS + RAGGED_NODES)
+def test_update_p_plan_covers_every_node_once(seg_nodes):
+    count, span = cg.update_p_plan(seg_nodes)
+    blocks = [(b * span, min(seg_nodes, (b + 1) * span)) for b in range(count)]
+    assert count >= 1 and span % 4 == 0
+    assert blocks[0][0] == 0 and blocks[-1][1] == seg_nodes
+    for (_, a1), (b0, _) in zip(blocks, blocks[1:]):
+        assert a1 == b0
+    assert all(n1 > n0 for n0, n1 in blocks)
+    assert_loads_cover(seg_nodes, blocks)
+
+
+def test_alpha_and_update_p_fill_the_card_at_the_production_chunk():
+    lanes, plates, nodes, sms = 4, 4, 8192, 132  # phase 9's chunk; an H100's SMs
+    cluster, _ = cg.alpha_plan(nodes)
+    count, _ = cg.update_p_plan(nodes)
+    assert lanes * plates * cluster == 128 <= sms
+    assert lanes * plates * count == 128
+    assert cg.vector_width(nodes, torch.float32) * cg.THREADS == cg.UPDATE_P_NODES  # one load each
+
+
+def test_state_allocates_no_scratch():
+    st = cg.SegmentedState(2, 3, 1000, torch.float32, "cpu", 10, 180)
+    tensors = {n: v for n, v in vars(st).items() if isinstance(v, torch.Tensor)}
+    assert sorted(tensors) == sorted(cg.SegmentedState.TENSORS)
+    for name in ("partials", "tickets", "groups"):
+        assert not hasattr(st, name)
+    vectors, per_segment, per_lane = 4 * 2 * 6000 * 4, 2 * 3 * (6 * 4 + 4 + 2), 2 * (4 + 1)
+    assert sum(t.numel() * t.element_size() for t in tensors.values()) == \
+        vectors + per_segment + per_lane
+
+
 def test_prolong_takes_16_byte_loads_at_every_bucket():
     for n in SHAPE_BUCKETS:
-        assert cg.prolong_vector(n, torch.float32) == 4
-        assert cg.prolong_vector(n, torch.float64) == 2
-    assert cg.prolong_vector(1001, torch.float32) == 1
-    assert cg.prolong_vector(1001, torch.float64) == 1
-    assert cg.prolong_vector(1002, torch.float32) == 1
-    assert cg.prolong_vector(1002, torch.float64) == 2
+        assert cg.vector_width(n, torch.float32) == 4
+        assert cg.vector_width(n, torch.float64) == 2
+    assert cg.vector_width(1001, torch.float32) == 1
+    assert cg.vector_width(1001, torch.float64) == 1
+    assert cg.vector_width(1002, torch.float32) == 1
+    assert cg.vector_width(1002, torch.float64) == 2
 
 
 def widest_rows(cols):
@@ -282,6 +361,91 @@ def test_a_graph_replays_the_launches_bit_for_bit():
         assert torch.equal(getattr(graphed, n), getattr(eager, n)), n
 
 
+# L lanes, P plates, Ns nodes a plate: the scalar route, the production
+# chunk, and 2 lanes of 4 segments of the largest bucket (clusters of 16)
+ALPHA_P_SHAPES = {"ragged": (3, 5, 1001), "chunk": (4, 4, 8192), "bucket 131072": (2, 4, 131072)}
+
+
+def alpha_p_case(device, dtype, shape):
+    """A random loop state (tests/test_torch_cg_kernels.py) with segment
+    (0, last) stalled and lane 0 at its budget, so alpha stops both; lane 0
+    and segment (last, 0) not running, so update_p leaves their p; and Ap."""
+    L, P, Ns = ALPHA_P_SHAPES[shape]
+    st = tc.random_state(device, dtype, L, P, Ns, seed=7)
+    st.stall[0, -1] = st.stall_limit
+    st.k[0] = st.max_iters
+    st.lane[0], st.lane[-1] = False, True
+    st.run[-1, 0], st.run[-1, -1] = False, True
+    scale = np.random.default_rng(8).uniform(0.5, 1.5, size=tuple(st.p.shape))
+    return st, st.p * torch.from_numpy(scale).to(device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", ALPHA_P_SHAPES)
+def test_alpha_and_update_p_match_their_plain_versions(shape, dtype):
+    device = tc.cuda_or_skip()
+    st, Ap = alpha_p_case(device, dtype, shape)
+    for kernel, plain, args in ((cg.cg_alpha, cg.cg_alpha_reference, (Ap,)),
+                                (cg.cg_update_p, cg.cg_update_p_reference, ())):
+        mine, theirs = st.clone(), st.clone()
+        before = kernel.launches
+        kernel(mine, *args)
+        plain(theirs, *args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        # alpha within the tolerance of its span, every other tensor (p
+        # included) bit for bit
+        tc.compare(kernel.__name__, tc.outputs(mine, {}), tc.outputs(theirs, {}),
+                   tc.KERNEL_TOL[dtype])
+        if kernel is cg.cg_alpha:  # the stopped segment and lane
+            assert not mine.run[0, -1] and float(mine.alpha[0, -1]) == 0.0 and not mine.lane[0]
+            assert bool(mine.run.any()) and bool(mine.lane.any())
+        else:
+            assert torch.equal(mine.p[0], st.p[0])
+            assert torch.equal(st.segments(mine.p)[-1, :, 0], st.segments(st.p)[-1, :, 0])
+            assert not torch.equal(st.segments(mine.p)[-1, :, -1], st.segments(st.p)[-1, :, -1])
+
+
+@pytest.mark.gpu
+def test_alpha_and_update_p_repeat_their_bits():
+    device = tc.cuda_or_skip()
+    st, Ap = alpha_p_case(device, torch.float32, "chunk")
+    first_alpha, first_p = st.clone(), st.clone()
+    cg.cg_alpha(first_alpha, Ap)
+    cg.cg_update_p(first_p)
+    for _ in range(50):
+        a, p = st.clone(), st.clone()
+        cg.cg_alpha(a, Ap)
+        cg.cg_update_p(p)
+        for n in cg.SegmentedState.TENSORS:
+            assert torch.equal(getattr(a, n), getattr(first_alpha, n)), n
+            assert torch.equal(getattr(p, n), getattr(first_p, n)), n
+
+
+@pytest.mark.gpu
+def test_a_graph_of_alpha_and_update_p_replays_bit_for_bit():
+    device = tc.cuda_or_skip()
+    st, Ap = alpha_p_case(device, torch.float32, "chunk")
+    eager, graphed = st.clone(), st.clone()
+
+    def body(s):
+        cg.cg_alpha(s, Ap)
+        cg.cg_update_p(s)
+
+    for _ in range(3):
+        body(eager)
+    block = cg.capture(lambda: body(graphed), lambda: None, device)
+    counts = (cg.cg_alpha.launches, cg.cg_update_p.launches)
+    for _ in range(3):
+        block.replay()
+    torch.cuda.synchronize()
+    block.close()
+    assert (cg.cg_alpha.launches, cg.cg_update_p.launches) == (counts[0] + 3, counts[1] + 3)
+    for n in cg.SegmentedState.TENSORS:
+        assert torch.equal(getattr(graphed, n), getattr(eager, n)), n
+
+
 def misaligned(t):
     """A contiguous copy of t that starts 4 bytes past a 16-byte boundary."""
     flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
@@ -334,3 +498,41 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="shared memory"):
         band.band_matvec(vals.new_zeros((vals.shape[0],) + tuple(wide.shape)).double(), wide,
                          u.double(), y.double(), widths)
+
+
+@pytest.mark.gpu
+def test_alpha_and_update_p_raise_on_what_the_kernels_do_not_take():
+    device = tc.cuda_or_skip()
+    st, Ap = alpha_p_case(device, torch.float32, "chunk")
+    with pytest.raises(ValueError):
+        cg.cg_alpha(st, Ap.cpu())
+    with pytest.raises(ValueError):
+        cg.cg_alpha(st, Ap.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        cg.cg_alpha(st, Ap.T.contiguous().T)
+    with pytest.raises(ValueError, match="16-byte"):
+        cg.cg_alpha(st, misaligned(Ap))
+    off = st.clone()
+    off.beta = off.beta.cpu()
+    with pytest.raises(ValueError):
+        cg.cg_update_p(off)
+    off = st.clone()
+    off.beta = off.beta.to(torch.float64)
+    with pytest.raises(ValueError):
+        cg.cg_update_p(off)
+    off = st.clone()
+    off.z = misaligned(off.z)
+    with pytest.raises(ValueError, match="16-byte"):
+        cg.cg_update_p(off)
+    with pytest.raises(TypeError):
+        cg.SegmentedState(2, 2, 64, torch.bfloat16, device, 10, 180)
+    # the scalar route of a ragged node count takes a misaligned vector
+    st, Ap = alpha_p_case(device, torch.float32, "ragged")
+    mine, plain = st.clone(), st.clone()
+    cg.cg_alpha(mine, misaligned(Ap))
+    cg.cg_alpha_reference(plain, Ap)
+    tc.compare("cg_alpha", tc.outputs(mine, {}), tc.outputs(plain, {}), tc.KERNEL_TOL[torch.float32])
+    mine.z, plain.z = misaligned(mine.z), plain.z
+    cg.cg_update_p(mine)
+    cg.cg_update_p_reference(plain)
+    assert torch.equal(mine.p, plain.p)

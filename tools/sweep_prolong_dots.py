@@ -1,23 +1,37 @@
-"""`prolong_dots` (csrc/cg_segmented.cu) at the cluster sizes it can take,
-checked and timed side by side on a CUDA card: at the production chunk,
-at chunks of few segments and at the largest node bucket.
+"""The CG loop's kernels whose launch plans are chosen on the host
+(csrc/cg_segmented.cu: `prolong_dots`, `cg_alpha`, `cg_update_p`) at the
+plans they can take, checked and timed side by side on a CUDA card: at the
+production chunk, at chunks of few segments and at the largest node bucket.
 
-    python3 tools/sweep_prolong_dots.py [--against NAME=TREE ...] [--clusters 4,8,16] [--table PATH]
+    python3 tools/sweep_prolong_dots.py [--against NAME=TREE ...] [--kernels prolong_dots,cg_alpha,cg_update_p]
+        [--clusters 8,16] [--spans 512,1024,2048] [--bodies ROUNDS] [--table PATH]
 
 For each shape (L lanes of P plates of Ns nodes, f32; a random loop state
 whose lanes and segments run, stop and stall, contiguous aggregates of
-about 25 nodes, 10% of the dofs fixed): this tree's kernel with the
-cluster that `ops.cg.prolong_plan` picks (marked `*`) and with each
-cluster size of `--clusters`, and the `prolong_dots` of each other
-checkout of this repo given as `--against NAME=TREE` (with its own plan,
-and with the sizes of `--clusters` where it has a `prolong_plan`). Each
-variant is first held against the plain version (z bit for bit; rz, r2,
-beta, best within 1e-5 of each value's size, as random segments' sums are
-alike and their span a few ulps wide; stall and k equal) and
-run twice for the same bits, then all are timed in turns on the device as
-chip_smoke.py times kernels. Per variant: ms per call and the share of
-the HBM rate that the launch's bytes (chip_smoke.prolong_dots_bytes: each
-input read once, each output written once) reach in that time.
+about 25 nodes, 10% of the dofs fixed) and each kernel: this tree's kernel
+with the plan that `ops.cg` picks (marked `*`: `prolong_plan`,
+`alpha_plan`, `update_p_plan`), with each cluster size of `--clusters`
+(`prolong_dots`, `cg_alpha`) or each node count a block of `--spans`
+(`cg_update_p`), and the kernel of each other checkout of this repo given
+as `--against NAME=TREE` (with its own plan, and with the plans swept
+where it has the plan function; its `cg_alpha` on a copy of the state with
+the scratch it took). Each variant is first held against the plain
+version (z and p bit for bit; rz, r2, beta, best and alpha within 1e-5 of
+each value's size, as random segments' sums are alike and their span a few
+ulps wide; the flags, stall and k equal) and run twice for the same bits,
+then all are timed in turns on the device as chip_smoke.py times kernels.
+Per variant: ms per call and the share of the HBM rate that the launch's
+bytes (chip_smoke's byte counts: each input read once, each output
+written once) reach in that time.
+
+`--bodies ROUNDS` also times whole loop bodies on phase 9's chunk (the
+state 20 bodies in, as chip_smoke.py phase 16 makes it): per tree, a CUDA
+graph of a block of CHECK_EVERY bodies whose `cg_alpha` and `cg_update_p`
+are that tree's (the other launches this tree's), replayed 4 times from
+the same state in each of ROUNDS rounds of turns (in order, then in
+reverse); device ms per body by CUDA events around the replays (no host
+read between blocks), and each tree's state after the replays held bit for
+bit against this tree's where its kernels sum in this tree's order.
 """
 
 import argparse
@@ -41,12 +55,11 @@ SHAPES = (
     (4, 4, 131072),   # the largest bucket, 16 segments
 )
 NODES_PER_AGGREGATE = 25  # phase 9's chunk: 1,280 aggregates over 32,768 nodes
-OUTPUTS = ("z", "rz", "r2", "best", "beta", "stall", "k")
-SUMMED = ("rz", "r2", "best", "beta")
+SUMMED = ("rz", "r2", "best", "beta", "alpha")
 
 
 def case(device, L, P, Ns, seed):
-    """(state, inputs of prolong_dots but z and the state) at a shape."""
+    """(state, inputs of the launches but the state, aggregates) at a shape."""
     from fea_tpu_torch.ops import cg
 
     g = torch.Generator(device).manual_seed(seed)
@@ -58,34 +71,40 @@ def case(device, L, P, Ns, seed):
     for t in (st.r, st.p, st.z):
         t.copy_(randn(L, ndof))
     st.r2.copy_(1 + 9 * rand(L, P))
+    st.atol2.copy_(st.r2 * torch.where(rand(L, P) < 0.8, 0.1, 10.0))
+    st.active.copy_(rand(L, P) < 0.9)
     st.rz.copy_(0.5 + 4.5 * rand(L, P))
     st.best.copy_(st.r2 * torch.where(rand(L, P) < 0.5, 0.5, 2.0))
+    st.beta.copy_(1.5 * rand(L, P))
     st.stall.copy_((rand(L, P) * 181).to(torch.int32))
     st.run.copy_(rand(L, P) < 0.7)
     st.lane.copy_(rand(L) < 0.8)
     st.lane[0] = True
     agg = (torch.arange(PN, device=device) * NA // PN).to(torch.int32)
     inputs = dict(zj=st.r * 1.5 + 0.1 * st.p, zc=0.01 * randn(L, NA * 3), agg=agg,
-                  arms=randn(PN, 2), free=(rand(L, ndof) < 0.9).float())
+                  arms=randn(PN, 2), free=(rand(L, ndof) < 0.9).float(),
+                  Ap=st.p * (0.5 + rand(L, ndof)))
     return st, inputs, NA
 
 
-def launch(fn, st, inputs):
+def prolong_launch(fn, st, inputs):
     fn(inputs["zj"], inputs["zc"], inputs["agg"], inputs["arms"], inputs["free"], st.z, st.P, st)
-    return {name: getattr(st, name) for name in OUTPUTS}
+    return {name: getattr(st, name) for name in ("z", "rz", "r2", "best", "beta", "stall", "k")}
 
 
-@contextlib.contextmanager
-def plan_of(cg_module, plan):
-    """`cg_module.prolong_plan` set to give `plan` (None: its own)."""
-    own = getattr(cg_module, "prolong_plan", None)
-    if plan is not None:
-        cg_module.prolong_plan = lambda seg_nodes: plan
-    try:
-        yield
-    finally:
-        if plan is not None:
-            cg_module.prolong_plan = own
+def alpha_launch(fn, st, inputs):
+    fn(st, inputs["Ap"])
+    return {name: getattr(st, name) for name in ("alpha", "run", "lane")}
+
+
+def update_p_launch(fn, st, inputs):
+    fn(st)
+    return {"p": st.p}
+
+
+def span_plan(Ns, span):
+    """(blocks, span) of cg_update_p over Ns nodes."""
+    return -(-Ns // span), span
 
 
 def cluster_plan(Ns, cluster):
@@ -95,33 +114,136 @@ def cluster_plan(Ns, cluster):
     return (cluster, span) if (cluster - 1) * span < Ns else None
 
 
-def variants(trees, Ns, clusters):
-    """{name: fn(zj, zc, agg, arms, free, z, n_seg, state)} of every
-    tree's kernel at its own plan and at each cluster size given."""
+# {kernel: (launch(fn, state, inputs) -> outputs, its plan function's name
+# in ops.cg, plan(Ns, swept value) for the values of which option)}
+KERNELS = {
+    "prolong_dots": (prolong_launch, "prolong_plan", cluster_plan, "clusters"),
+    "cg_alpha": (alpha_launch, "alpha_plan", cluster_plan, "clusters"),
+    "cg_update_p": (update_p_launch, "update_p_plan", span_plan, "spans"),
+}
+
+
+def launch_bytes(kernel, st, NA):
+    L, P, Ns = st.k.shape[0], st.P, st.Ns
+    if kernel == "prolong_dots":
+        return chip_smoke.prolong_dots_bytes(L, P, Ns, NA, 4)
+    if kernel == "cg_alpha":
+        return chip_smoke.cg_alpha_bytes(L, P, Ns, 4)
+    share = float((st.run & st.lane[:, None]).float().mean())
+    return chip_smoke.cg_update_p_bytes(L, P, Ns, 4, share)
+
+
+@contextlib.contextmanager
+def plan_of(cg_module, name, plan):
+    """`cg_module.<name>` (a plan function) set to give `plan` (None: its
+    own)."""
+    own = getattr(cg_module, name, None)
+    if plan is not None:
+        setattr(cg_module, name, lambda seg_nodes: plan)
+    try:
+        yield
+    finally:
+        if plan is not None:
+            setattr(cg_module, name, own)
+
+
+def variants(trees, kernel, Ns, values):
+    """{name: (fn, ops.cg module)} of every tree's kernel at its own plan
+    and at each plan swept."""
+    _, plan_name, plan, _ = KERNELS[kernel]
     out = {}
     for tree, cg_module in trees.items():
-        own = getattr(cg_module, "prolong_plan", None)
+        own = getattr(cg_module, plan_name, None)
         out[f"{tree}*" if own else tree] = (cg_module, None)
         if own is None:
             continue
-        for cluster in clusters:
-            plan = cluster_plan(Ns, cluster)
-            if plan is not None and plan != own(Ns):
-                out[f"{tree}/c{cluster}"] = (cg_module, plan)
+        for value in values:
+            swept = plan(Ns, value)
+            if swept is not None and swept != own(Ns):
+                out[f"{tree}/{value}"] = (cg_module, swept)
     fns = {}
-    for name, (cg_module, plan) in out.items():
-        def fn(*args, cg_module=cg_module, plan=plan):
-            with plan_of(cg_module, plan):
-                cg_module.prolong_dots(*args)
-        fns[name] = fn
+    for name, (cg_module, swept) in out.items():
+        def fn(*args, cg_module=cg_module, swept=swept):
+            with plan_of(cg_module, plan_name, swept):
+                getattr(cg_module, kernel)(*args)
+        fns[name] = (fn, cg_module)
     return fns
+
+
+BODY_REPLAYS = 4  # blocks of bodies a timed run replays
+
+
+def body_rows(trees, rounds):
+    """Rows of device ms per loop body on phase 9's chunk, each tree's
+    cg_alpha and cg_update_p in a captured block of bodies (`--bodies`)."""
+    from unittest import mock
+
+    from fea_tpu_torch.datagen.batched import chunk_inputs, chunk_keywords, chunk_tables
+    from fea_tpu_torch.fem.flatgroup import chunk_system
+    from fea_tpu_torch.fem.solver import CHECK_EVERY, segmented_body
+    from fea_tpu_torch.ops import cg
+
+    device = torch.device("cuda")
+    chunk = chip_smoke.chunk_payloads(device, banded=True)
+    solvers, host, m_real, band_hb = chunk_inputs(chunk)
+    kw = chunk_keywords(solvers, band_hb)
+    tables, m_real_p = chunk_tables(solvers, host, m_real, device)
+    system = chunk_system(*tables, m_real_p=m_real_p, n_coarse=kw["n_coarse"], band_hb=band_hb)
+    st, A = chip_smoke.chunk_state(system, len(chunk), kw["tol"], kw["max_iters"],
+                                   chip_smoke.CG_STATE_BODIES)
+    pre = system.precondition
+    states, blocks = {}, {}
+    for tree, cg_module in trees.items():
+        cg_module.load(0)  # outside the capture
+        s = states[tree] = chip_smoke.earlier_state(st, cg_module)
+
+        def block(s=s):
+            for _ in range(CHECK_EVERY):
+                segmented_body(s, A, pre)
+
+        with mock.patch.object(cg, "cg_alpha", cg_module.cg_alpha), \
+                mock.patch.object(cg, "cg_update_p", cg_module.cg_update_p):
+            blocks[tree] = cg.capture(block, lambda s=s: (A(s.p), pre.parts(s.r)), device)
+    names = list(trees)
+    ms = {tree: [] for tree in names}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(rounds):
+        for tree in names + names[::-1]:
+            for name in cg.SegmentedState.TENSORS:
+                getattr(states[tree], name).copy_(getattr(st, name))
+            torch.cuda.synchronize()
+            torch.cuda._sleep(chip_smoke.QUEUE_CYCLES)
+            start.record()
+            for _ in range(BODY_REPLAYS):
+                blocks[tree].replay()
+            end.record()
+            torch.cuda.synchronize()
+            ms[tree].append(start.elapsed_time(end) / (BODY_REPLAYS * CHECK_EVERY))
+    rows = []
+    lanes = int(states["this"].lane.sum())
+    for tree in names:
+        same = all(torch.equal(getattr(states[tree], n), getattr(states["this"], n))
+                   for n in cg.SegmentedState.TENSORS)
+        v = sorted(ms[tree])
+        rows.append(f"body (phase 9's chunk, graph of {CHECK_EVERY} bodies x {BODY_REPLAYS}, "
+                    f"{len(v)} runs) {tree:11s} ms per body mean {sum(v) / len(v):.5f}, median "
+                    f"{v[len(v) // 2]:.5f} [{v[0]:.5f}, {v[-1]:.5f}]; the state bit for bit "
+                    f"this tree's: {same}")
+        log(rows[-1])
+    log(f"body: {lanes} of {st.k.shape[0]} lanes still running after the timed bodies")
+    for block in blocks.values():
+        block.close()
+    return rows
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", metavar="NAME=TREE", action="append", default=[])
-    parser.add_argument("--clusters", default="4,8,16")
+    parser.add_argument("--kernels", default=",".join(KERNELS))
+    parser.add_argument("--clusters", default="8,16")
+    parser.add_argument("--spans", default="512,1024,2048")
     parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--bodies", type=int, default=0, metavar="ROUNDS")
     parser.add_argument("--table", metavar="PATH")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -141,36 +263,38 @@ def main():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log("  nvcc: " + line.strip())
-    clusters = [int(c) for c in args.clusters.split(",")]
-    rows = []
-    for L, P, Ns in SHAPES:
-        st, inputs, NA = case(device, L, P, Ns, seed=L * P + Ns)
-        want = launch(cg.prolong_dots_reference, st.clone(), inputs)
-        fns = variants(trees, Ns, clusters)
-        timed = {}
-        for name, fn in fns.items():
-            got, again = launch(fn, st.clone(), inputs), launch(fn, st.clone(), inputs)
-            torch.cuda.synchronize()
-            if any(not torch.equal(got[k], again[k]) for k in OUTPUTS):
-                raise AssertionError(f"{name} at {(L, P, Ns)}: two runs differ")
-            if not torch.equal(got["z"], want["z"]):
-                raise AssertionError(f"{name} at {(L, P, Ns)}: z is not the plain version's")
-            for k in OUTPUTS:
-                a, b = got[k].double(), want[k].double()
-                rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
-                if rel > (CG_KERNEL_REL if k in SUMMED else 0.0):
-                    raise AssertionError(f"{name} at {(L, P, Ns)}: {k} {rel:.3e} off plain")
-            s = st.clone()
-            timed[name] = lambda fn=fn, s=s: launch(fn, s, inputs)
-        ms = chip_smoke.in_turns(timed, args.iters)
-        nbytes = chip_smoke.prolong_dots_bytes(L, P, Ns, NA, 4)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        for name, t in ms.items():
-            rows.append(f"L {L} P {P} Ns {Ns:6d} ({L * P:2d} segments, {nbytes / 1e6:7.3f} MB, "
-                        f"bound {bound:.5f} ms) {name:10s} {t:.5f} ms  "
-                        f"{bound / t:.3f} of the HBM rate")
-            log(rows[-1])
-        del st, inputs, want, fns, timed
+    rows = body_rows(trees, args.bodies) if args.bodies else []
+    for kernel in filter(None, args.kernels.split(",")):
+        launch, _, _, option = KERNELS[kernel]
+        values = [int(v) for v in getattr(args, option).split(",")]
+        for L, P, Ns in SHAPES:
+            st, inputs, NA = case(device, L, P, Ns, seed=L * P + Ns)
+            plain = getattr(cg, kernel + "_reference")
+            want = launch(plain, st.clone(), inputs)
+            timed = {}
+            for name, (fn, cg_module) in variants(trees, kernel, Ns, values).items():
+                got, again = (launch(fn, chip_smoke.earlier_state(st, cg_module), inputs)
+                              for _ in range(2))
+                torch.cuda.synchronize()
+                if any(not torch.equal(got[k], again[k]) for k in got):
+                    raise AssertionError(f"{kernel} {name} at {(L, P, Ns)}: two runs differ")
+                for k in got:
+                    a, b = got[k].double(), want[k].double()
+                    rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                    if rel > (CG_KERNEL_REL if k in SUMMED else 0.0):
+                        raise AssertionError(f"{kernel} {name} at {(L, P, Ns)}: {k} {rel:.3e} "
+                                             f"off plain")
+                s = chip_smoke.earlier_state(st, cg_module)
+                timed[name] = lambda fn=fn, s=s: launch(fn, s, inputs)
+            ms = chip_smoke.in_turns(timed, args.iters)
+            nbytes = launch_bytes(kernel, st, NA)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            for name, t in ms.items():
+                rows.append(f"{kernel:12s} L {L} P {P} Ns {Ns:6d} ({L * P:2d} segments, "
+                            f"{nbytes / 1e6:7.3f} MB, bound {bound:.5f} ms) {name:11s} {t:.5f} ms  "
+                            f"{bound / t:.3f} of the HBM rate")
+                log(rows[-1])
+            del st, inputs, want, timed
     smi = chip_smoke.nvidia_smi()
     log(smi)
     if args.table:
