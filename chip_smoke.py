@@ -168,15 +168,15 @@ Phase 16: the CG loop's kernels (csrc/cg_segmented.cu) and the band
          on the lanes that both end under a residual of 1e-4. Blocks of 8,
          16 and 32 bodies between host reads: ms, host reads, the same rows.
          Two datagen runs of 2 plates from one seed: the same bytes.
-         Under `--against TREE` the other checkout's cg_alpha, prolong_dots,
-         cg_update_p and band kernel are timed in the same turns
-         (`earlier`; its cg_alpha on a copy of the state with the scratch
-         it took): its run and lane flags, z, p and band product bit for
-         bit this tree's (alpha within the tolerance: pAp is summed in
-         another order). cg_alpha, prolong_dots and cg_update_p print their
-         launch plans and TB/s over the bytes they move (the bound's), the
-         band kernel over the bytes it is modelled to move (each slice up
-         to its widest row) beside the bound's.
+         Under `--against TREE` the other checkout's five CG kernels and
+         band kernel are timed in the same turns (`earlier`; its cg_alpha
+         on a copy of the state with the scratch it took): its run and lane
+         flags, x, r, zj, rc, z, p and band product bit for bit this tree's
+         (alpha within the tolerance: pAp is summed in another order). The
+         five CG kernels print their launch plans and TB/s over the bytes
+         they move (the bound's), the band kernel over the bytes it is
+         modelled to move (each slice up to its widest row) beside the
+         bound's.
 
 Kernel times are device times: CUDA events around calls that the host
 queued behind a device-side wait, each function timed in turns.
@@ -244,6 +244,11 @@ REDESIGNED = {
                     "0's shared memory (no partials, tickets or atomics in device memory)",
     "cg_update_p": "a grid of blocks per segment, flags and beta read once a block, stopped "
                    "segments skipped whole, 16-byte loads",
+    "cg_update_xr": "a grid of blocks per segment, the lane flag and alpha read once a block, "
+                    "stopped lanes skipped whole, 16-byte loads",
+    "jacobi_restrict": "the Jacobi term on a grid of blocks per lane with 16-byte loads; the "
+                       "restriction a warp per aggregate for all lanes of a pass, the member "
+                       "table and arms read once, a row of padding leaving after its first load",
     "band_matvec": "each block's slices staged by TMA bulk copies up to their widest row",
 }
 
@@ -2583,6 +2588,20 @@ def cg_alpha_bytes(L, P, Ns, item):
     return 2 * L * 2 * P * Ns * item + L * P * (4 * item + 6) + L * 5
 
 
+def cg_update_xr_bytes(L, P, Ns, item, share):
+    """Bytes cg_update_xr must move where a `share` of the lanes runs: x, r,
+    p and Ap read and x and r written on those; alpha read per segment, the
+    lane flag per lane."""
+    return 6 * L * 2 * P * Ns * item * share + L * P * item + L
+
+
+def jacobi_restrict_bytes(L, PN, NA, W, members, item):
+    """Bytes jacobi_restrict must move: r read, the block inverse (two
+    vectors) read and zj written (L, 2 PN); the member table (NA, W) read,
+    the arms of its `members` real entries read, rc (L, NA, 3) written."""
+    return 4 * L * 2 * PN * item + NA * W * 4 + members * 2 * item + L * NA * 3 * item
+
+
 def cg_update_p_bytes(L, P, Ns, item, share):
     """Bytes cg_update_p must move where a `share` of the segments runs: z
     and p read and p written on those; beta and run read per segment, the
@@ -2607,8 +2626,6 @@ def cg_launches(st, A, pre):
     lanes = int(st.lane.sum()) / C  # the share of the lanes that run (update_xr)
     segs = int((st.run & st.lane[:, None]).sum()) / (C * st.P)  # ... and of segments (update_p)
     members = int((pre.members < PN).sum())  # real nodes in the member table
-    V = C * ndof * item
-    S = C * st.P  # segments
 
     def alpha(s, fn):
         fn(s, Ap)
@@ -2634,14 +2651,14 @@ def cg_launches(st, A, pre):
 
     # bytes: each input read once, each output written once; operations:
     # each product and sum on the values this state reads
-    zc_bytes = C * NA * 3 * item
     return {
         "cg_alpha": (alpha, cg.cg_alpha, cg.cg_alpha_reference,
                      (cg_alpha_bytes(C, st.P, st.Ns, item), 2 * C * ndof)),
         "cg_update_xr": (update_xr, cg.cg_update_xr, cg.cg_update_xr_reference,
-                         (6 * V * lanes + S * item + C, 4 * C * ndof * lanes)),
+                         (cg_update_xr_bytes(C, st.P, st.Ns, item, lanes),
+                          4 * C * ndof * lanes)),
         "jacobi_restrict": (jacobi, cg.jacobi_restrict, cg.jacobi_restrict_reference,
-                            (4 * V + NA * W * 4 + members * 2 * item + zc_bytes,
+                            (jacobi_restrict_bytes(C, PN, NA, W, members, item),
                              3 * C * ndof + 6 * C * members)),
         "prolong_dots": (prolong, cg.prolong_dots, cg.prolong_dots_reference,
                          (prolong_dots_bytes(C, st.P, st.Ns, NA, item), 8 * C * ndof)),
@@ -2792,7 +2809,8 @@ def earlier_state(st, earlier_cg):
 
 # outputs of the launches that are held bit for bit against the earlier
 # checkout's kernel (alpha itself comes of pAp, whose order of sums differs)
-EARLIER_EQUAL = {"cg_alpha": ("run", "lane"), "prolong_dots": ("z",), "cg_update_p": ("p",)}
+EARLIER_EQUAL = {"cg_alpha": ("run", "lane"), "cg_update_xr": ("x", "r"),
+                 "jacobi_restrict": ("zj", "rc"), "prolong_dots": ("z",), "cg_update_p": ("p",)}
 
 
 def coarse_product_time(pre, r):
@@ -2812,6 +2830,18 @@ def launch_floor():
     timed as the kernels are: what any one launch costs at the least."""
     ms = in_turns({"empty": lambda: torch.cuda._sleep(0)}, 50)["empty"]
     log(f"phase 16: an empty kernel, timed as the kernels are: {ms:.4f} ms")
+
+
+def restrict_plan_text(L, PN, NA):
+    """jacobi_restrict's plan (`ops.cg.restrict_plan`) over L lanes of PN
+    nodes and NA aggregates, in words."""
+    from fea_tpu_torch.ops import cg
+
+    plan = cg.restrict_plan(L)
+    jac, passes, res = plan.grid(L, PN, NA)
+    return (f"{jac} Jacobi blocks of {plan.span} nodes a lane and {res} restriction blocks of "
+            f"{plan.warps} warps ({passes} pass{'es' * (passes > 1)} of {plan.lanes} lanes), the "
+            f"{'Jacobi' if plan.jacobi_first else 'restriction'} blocks first")
 
 
 def phase_cg_loop(device, results, earlier=None):
@@ -2838,7 +2868,10 @@ def phase_cg_loop(device, results, earlier=None):
     tables, m_real_p = chunk_tables(solvers, host, m_real, device)
     system = chunk_system(*tables, m_real_p=m_real_p, n_coarse=kw["n_coarse"], band_hb=band_hb)
     st, A = chunk_state(system, P, kw["tol"], kw["max_iters"], CG_STATE_BODIES)
+    pre = system.precondition
     plans = {"cg_alpha": "one cluster of %d blocks of %d nodes a segment" % cg.alpha_plan(st.Ns),
+             "cg_update_xr": "%d blocks of %d nodes a segment" % cg.update_xr_plan(st.Ns),
+             "jacobi_restrict": restrict_plan_text(C, st.x.shape[1] // 2, pre.members.shape[0]),
              "prolong_dots": "one cluster of %d blocks of %d nodes a segment"
                              % cg.prolong_plan(st.Ns),
              "cg_update_p": "%d blocks of %d nodes a segment" % cg.update_p_plan(st.Ns)}

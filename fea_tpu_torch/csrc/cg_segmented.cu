@@ -43,17 +43,23 @@
 //     landed. No partial, ticket, fence or atomic goes through device
 //     memory, and the order of a sum depends on the segment's node count
 //     alone: a chunk repeats bit for bit;
-//   - the elementwise updates of p run on a grid of (blocks, segments)
-//     (ops/cg.py update_p_plan): a block reads its segment's flags and beta
-//     once and leaves before it loads a vector where the segment or its
-//     lane has stopped; no 64-bit division per element;
+//   - the elementwise updates of x, r and p run on a grid of (blocks,
+//     segments) (ops/cg.py update_xr_plan, update_p_plan): a block reads
+//     its flags and its segment's scalar once and leaves before it loads a
+//     vector where its lane (p: or segment) has stopped; 16-byte loads, no
+//     64-bit division per element; the Jacobi term the same over a grid of
+//     (blocks, lanes);
+//   - the restriction takes a warp per aggregate for all the lanes of a
+//     pass (ops/cg.py restrict_plan): the member index and arms loaded once,
+//     then every lane's gathers of r at once; a row of padding leaves
+//     after its first load;
 //   - products and sums are rounded one at a time (__fmul_rn / __fadd_rn,
 //     no FMA contraction), as the torch ops they replace round them, so the
 //     elementwise updates and the preconditioner's terms equal the plain
 //     versions bit for bit; only the order of the dot products' sums differs;
 //   - launches per loop body: alpha (pAp dots and the epilogue), update_xr,
-//     jacobi_restrict (the 2x2 apply and the restriction in one grid: a
-//     thread per node, then a warp per (lane, aggregate)), prolong_dots (the
+//     jacobi_restrict (the 2x2 apply and the restriction in one grid: blocks
+//     of nodes per lane and warps per aggregate), prolong_dots (the
 //     prolongation, the sum, the free mask and the rz / r2 dots with their
 //     epilogue), update_p.
 
@@ -276,70 +282,186 @@ __global__ void __launch_bounds__(THREADS) alpha_kernel(AlphaArgs<T> a) {
 }
 
 // Launch 2: x += alpha p, r -= alpha Ap on the lanes that run.
-template <typename T>
+//
+// Grid (blocks, L P), laid out as update_p's: block b of segment s = l P +
+// q takes the nodes [b span, min(Ns, (b + 1) span)), a thread V
+// consecutive nodes of both components of x, r, p and Ap at a time (V > 1:
+// span and Ns multiples of V, the pointers 16-byte aligned). A block reads
+// its lane flag and its segment's alpha once and leaves before any load
+// where its lane has stopped. A stopped segment of a running lane (alpha
+// 0) is not skipped: fea_tpu takes x + 0 p there, which is not x where p
+// is not finite or x is -0.0.
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS) update_xr_kernel(
     T* __restrict__ x, T* __restrict__ r, const T* __restrict__ p, const T* __restrict__ Ap,
-    const T* __restrict__ alpha, const uint8_t* __restrict__ lane, long long total, int P, int Ns) {
-  const long long PN = (long long)P * Ns, ndof = 2 * PN;
-  for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x; i < total;
-       i += (long long)gridDim.x * THREADS) {
-    const long long l = i / ndof;
-    if (!lane[l]) continue;
-    const long long j = i - l * ndof;
-    const T a = alpha[l * P + (int)((j % PN) / Ns)];
-    x[i] = add(x[i], mul(a, p[i]));
-    r[i] = sub(r[i], mul(a, Ap[i]));
+    const T* __restrict__ alpha, const uint8_t* __restrict__ lane, int P, int Ns, int span) {
+  const int s = blockIdx.y, l = s / P, q = s - l * P;
+  if (!lane[l]) return;  // the whole block: a stopped lane moves no vector
+  const T a = alpha[s];
+  const long long PN = (long long)P * Ns;
+  const long long base = (long long)l * 2 * PN + (long long)q * Ns;
+  const int n1 = min(Ns, ((int)blockIdx.x + 1) * span);
+  for (int n = blockIdx.x * span + threadIdx.x * V; n < n1; n += THREADS * V) {
+    const long long i0 = base + n, i1 = i0 + PN;
+    T x0[V], x1[V], r0[V], r1[V], p0[V], p1[V], ap0[V], ap1[V];
+    load_vec<T, V>(x + i0, x0);
+    load_vec<T, V>(x + i1, x1);
+    load_vec<T, V>(r + i0, r0);
+    load_vec<T, V>(r + i1, r1);
+    load_vec<T, V>(p + i0, p0);
+    load_vec<T, V>(p + i1, p1);
+    load_vec<T, V>(Ap + i0, ap0);
+    load_vec<T, V>(Ap + i1, ap1);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      x0[j] = add(x0[j], mul(a, p0[j]));
+      x1[j] = add(x1[j], mul(a, p1[j]));
+      r0[j] = sub(r0[j], mul(a, ap0[j]));
+      r1[j] = sub(r1[j], mul(a, ap1[j]));
+    }
+    store_vec<T, V>(x + i0, x0);
+    store_vec<T, V>(x + i1, x1);
+    store_vec<T, V>(r + i0, r0);
+    store_vec<T, V>(r + i1, r1);
   }
 }
 
-// Launch 3: the first `jac_blocks` blocks apply the 2x2 block inverse
-// (L, 2, 2, PN) node by node (zj); the rest restrict r to the coarse space,
-// one warp per (lane, aggregate) over its row of the member table (W
-// entries, PN marks padding): rc[l, a] = sum over members m of (rx, ry,
-// -arm_y rx + arm_x ry), by a fixed shuffle tree.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) jacobi_restrict_kernel(
-    const T* __restrict__ r, const T* __restrict__ block_inv, const T* __restrict__ arms,
-    const int* __restrict__ members, T* __restrict__ zj, T* __restrict__ rc, int L, long long PN,
-    int NA, int W, int jac_blocks) {
-  if ((int)blockIdx.x < jac_blocks) {
-    const long long i = blockIdx.x * (long long)THREADS + threadIdx.x;
-    if (i >= L * PN) return;
-    const long long l = i / PN, n = i - l * PN;
-    const long long v0 = l * 2 * PN + n;
-    const T r0 = r[v0], r1 = r[v0 + PN];
-    const T* b = block_inv + l * 4 * PN + n;
-    zj[v0] = add(mul(b[0], r0), mul(b[PN], r1));
-    zj[v0 + PN] = add(mul(b[2 * PN], r0), mul(b[3 * PN], r1));
-    return;
-  }
-  const long long wid = (long long)(blockIdx.x - jac_blocks) * WARPS + threadIdx.x / 32;
-  if (wid >= (long long)L * NA) return;  // uniform over the warp
-  const int lid = threadIdx.x % 32;
-  const long long l = wid / NA, a = wid - l * NA;
-  const T* rl = r + l * 2 * PN;
-  T s0 = T(0), s1 = T(0), s2 = T(0);
-  for (int w = lid; w < W; w += 32) {
-    const int m = members[a * W + w];
-    if (m < PN) {
-      const T rx = rl[m], ry = rl[PN + m];
-      s0 = add(s0, rx);
-      s1 = add(s1, ry);
-      s2 = add(s2, add(mul(-arms[2 * m + 1], rx), mul(arms[2 * m], ry)));
+// values a restriction lane sums for a pass of LP lanes: 3 LP, padded to a
+// power of two
+template <int LP>
+constexpr int kTreeValues = LP == 1 ? 4 : LP == 2 ? 8 : LP == 4 ? 16 : 32;
+
+// The warp's sums over its 32 lanes of each of a lane's N values (N a power
+// of two up to 32) by the pairs of a shuffle-down tree: at offset OFF the
+// partial of lane i and that of lane i + OFF = i ^ OFF, for i under OFF.
+// While a lane holds more than one value it keeps half of them (a lane with
+// the bit OFF set the upper half) and sends its partner the other half, so
+// a step shuffles N / 2 values and not N. Value k ends on the lanes lid with
+// lid / (32 / N) == k, with the bits of lane 0 of a shuffle-down tree
+// (each sum is the same two partials in the same or the other order).
+template <int N, int OFF, typename T, int M>
+__device__ __forceinline__ void tree_sums(T (&v)[M], int lid) {
+  if constexpr (OFF > 0) {
+    if constexpr (N > 1) {
+      const bool upper = (lid & OFF) != 0;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const T send = upper ? v[i] : v[i + N / 2];
+        const T keep = upper ? v[i + N / 2] : v[i];
+        v[i] = add(keep, __shfl_xor_sync(0xffffffffu, send, OFF));
+      }
+      tree_sums<N / 2, OFF / 2>(v, lid);
+    } else {
+      v[0] = add(v[0], __shfl_xor_sync(0xffffffffu, v[0], OFF));
+      tree_sums<1, OFF / 2>(v, lid);
     }
   }
+}
+
+struct RestrictPlan {
+  int jac_blocks;  // Jacobi blocks a lane (0: no Jacobi term), each of `span` nodes
+  int span;
+  int res_blocks;  // restriction blocks (0: no restriction), each of blockDim / 32 warps
+  int passes;      // passes of lanes: warp w takes pass w / NA of aggregate w % NA
+  int jacobi_first;
+};
+
+// Launch 3: the 2x2 block inverse (L, 2, 2, PN) applied node by node (zj)
+// and the restriction of r to the coarse space (rc), in one grid of
+// blockDim threads: the Jacobi blocks first or last (plan.jacobi_first).
+//
+// Jacobi: a grid of (plan.jac_blocks, L) blocks, block b of lane l over
+// the lane's nodes [b span, min(PN, (b + 1) span)), a thread V consecutive
+// nodes of r's two components and block_inv's four planes at a time (V >
+// 1: span and PN multiples of V, the pointers 16-byte aligned).
+//
+// Restriction: a warp per (pass, aggregate) over the aggregate's row of the
+// member table (W entries, PN marks padding): for each of the pass's up to
+// LP lanes, rc[l, a] = the sum over members m of (rx, ry, -arm_y rx +
+// arm_x ry). Member w goes to warp lane w mod 32, which loads its index
+// and arms once and then its 2 LP gathers of r at once, keeping 3 LP sums;
+// the warp's sums by tree_sums, in the order of a shuffle-down tree (the
+// bits do not depend on LP or the pass). A row whose entries are all
+// padding writes its zeros after its first load.
+template <typename T, int V, int LP>
+__global__ void __launch_bounds__(THREADS) jacobi_restrict_kernel(
+    const T* __restrict__ r, const T* __restrict__ block_inv, const T* __restrict__ arms,
+    const int* __restrict__ members, T* __restrict__ zj, T* __restrict__ rc, int L, int PN,
+    int NA, int W, RestrictPlan plan) {
+  const int jac_total = plan.jac_blocks * L;
+  const int jac_start = plan.jacobi_first ? 0 : plan.res_blocks;
+  const int b = blockIdx.x;
+  if (b >= jac_start && b < jac_start + jac_total) {
+    const int l = (b - jac_start) / plan.jac_blocks;
+    const int n0 = (b - jac_start - l * plan.jac_blocks) * plan.span;
+    const int n1 = min(PN, n0 + plan.span);
+    const T* rl = r + (long long)l * 2 * PN;
+    const T* bl = block_inv + (long long)l * 4 * PN;
+    T* zl = zj + (long long)l * 2 * PN;
+    for (int n = n0 + threadIdx.x * V; n < n1; n += blockDim.x * V) {
+      T r0[V], r1[V], b00[V], b01[V], b10[V], b11[V];
+      load_vec<T, V>(rl + n, r0);
+      load_vec<T, V>(rl + PN + n, r1);
+      load_vec<T, V>(bl + n, b00);
+      load_vec<T, V>(bl + PN + n, b01);
+      load_vec<T, V>(bl + 2LL * PN + n, b10);
+      load_vec<T, V>(bl + 3LL * PN + n, b11);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s0 = add(s0, __shfl_down_sync(0xffffffffu, s0, off));
-    s1 = add(s1, __shfl_down_sync(0xffffffffu, s1, off));
-    s2 = add(s2, __shfl_down_sync(0xffffffffu, s2, off));
+      for (int j = 0; j < V; ++j) {
+        b00[j] = add(mul(b00[j], r0[j]), mul(b01[j], r1[j]));
+        b10[j] = add(mul(b10[j], r0[j]), mul(b11[j], r1[j]));
+      }
+      store_vec<T, V>(zl + n, b00);
+      store_vec<T, V>(zl + PN + n, b10);
+    }
+    return;
   }
-  if (lid == 0) {
-    T* out = rc + wid * 3;
-    out[0] = s0;
-    out[1] = s1;
-    out[2] = s2;
+  const int res_block = plan.jacobi_first ? b - jac_total : b;
+  const int wid = res_block * (int)(blockDim.x / 32) + (int)threadIdx.x / 32;
+  if (wid >= plan.passes * NA) return;  // uniform over the warp
+  const int lid = threadIdx.x % 32;
+  const int pass = wid / NA, a = wid - pass * NA;
+  const int l0 = pass * LP, nl = min(LP, L - l0);
+  const T* rl = r + (long long)l0 * 2 * PN;
+  constexpr int N = kTreeValues<LP>;
+  T v[N];  // lane j's sums c at 3 j + c, then padding
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = T(0);
+  bool any_real = false;
+  for (int w0 = 0; w0 < W; w0 += 32) {
+    const int w = w0 + lid;
+    const int m = w < W ? members[(long long)a * W + w] : PN;
+    const bool real = m < PN;
+    if (!__any_sync(0xffffffffu, real)) continue;  // padding only: no gather
+    any_real = true;
+    if (real) {
+      const T ax = arms[2LL * m], ay = arms[2LL * m + 1];
+      T rx[LP], ry[LP];
+#pragma unroll
+      for (int j = 0; j < LP; ++j) {
+        if (j < nl) {
+          rx[j] = rl[(long long)j * 2 * PN + m];
+          ry[j] = rl[(long long)j * 2 * PN + PN + m];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < LP; ++j) {
+        if (j < nl) {
+          v[3 * j] = add(v[3 * j], rx[j]);
+          v[3 * j + 1] = add(v[3 * j + 1], ry[j]);
+          v[3 * j + 2] = add(v[3 * j + 2], add(mul(-ay, rx[j]), mul(ax, ry[j])));
+        }
+      }
+    }
   }
+  T* out = rc + ((long long)l0 * NA + a) * 3;
+  if (!any_real) {  // a row of padding: its sums are 0
+    if (lid < 3 * nl) out[(long long)(lid / 3) * NA * 3 + lid % 3] = T(0);
+    return;
+  }
+  tree_sums<N, 16>(v, lid);
+  const int k = lid / (32 / N);  // the value this lane holds
+  if (lid % (32 / N) == 0 && k < 3 * nl) out[(long long)(k / 3) * NA * 3 + k % 3] = v[0];
 }
 
 template <typename T>
@@ -492,11 +614,6 @@ __global__ void __launch_bounds__(THREADS) update_p_kernel(
   }
 }
 
-int elementwise_blocks(long long total) {
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  return (int)(blocks < (1 << 20) ? blocks : (1 << 20));
-}
-
 // Launches `kernel` on a grid of (cluster, segments) blocks of THREADS in
 // clusters of (cluster, 1, 1) (over 8 needs the non-portable attribute
 // that load_kernels sets).
@@ -536,24 +653,53 @@ int launch_alpha(const AlphaArgs<T>& a, int L, int cluster, int vec, cudaStream_
                          L * a.P, stream, a);
 }
 
+// `blocks` blocks of `span` nodes per segment, `vec` values a load
 template <typename T>
 int launch_update_xr(void* x, void* r, void* p, void* Ap, void* alpha, void* lane, int L, int P,
-                     int Ns, cudaStream_t stream) {
-  const long long total = (long long)L * 2 * P * Ns;
-  update_xr_kernel<T><<<elementwise_blocks(total), THREADS, 0, stream>>>(
-      (T*)x, (T*)r, (const T*)p, (const T*)Ap, (const T*)alpha, (const uint8_t*)lane, total, P, Ns);
+                     int Ns, int blocks, int span, int vec, cudaStream_t stream) {
+  if (!valid_plan<T>(Ns, blocks, span, vec) || L * P > 65535) return (int)cudaErrorInvalidValue;
+  auto kernel = vec == 1 ? update_xr_kernel<T, 1> : update_xr_kernel<T, kVec<T>>;
+  kernel<<<dim3(blocks, L * P), THREADS, 0, stream>>>(
+      (T*)x, (T*)r, (const T*)p, (const T*)Ap, (const T*)alpha, (const uint8_t*)lane, P, Ns, span);
   return (int)cudaGetLastError();
 }
 
+constexpr int kMaxPassLanes = 8;  // lanes a restriction pass keeps in registers at most
+
+template <typename T, int V>
+auto restrict_kernel(int lanes) {
+  return lanes == 1   ? jacobi_restrict_kernel<T, V, 1>
+         : lanes == 2 ? jacobi_restrict_kernel<T, V, 2>
+         : lanes == 4 ? jacobi_restrict_kernel<T, V, 4>
+                      : jacobi_restrict_kernel<T, V, kMaxPassLanes>;
+}
+
+// the plan: Jacobi blocks of `span` nodes a lane, restriction blocks of
+// `warps` warps, passes of `lanes` lanes (1, 2, 4 or 8), the Jacobi blocks
+// first or last; `vec` values a Jacobi load
 template <typename T>
 int launch_jacobi_restrict(void* r, void* block_inv, void* arms, void* members, void* zj, void* rc,
-                           int L, long long PN, int NA, int W, cudaStream_t stream) {
-  const int jac_blocks = block_inv != nullptr ? (int)((L * PN + THREADS - 1) / THREADS) : 0;
-  const int res_blocks = members != nullptr ? (int)(((long long)L * NA + WARPS - 1) / WARPS) : 0;
-  if (jac_blocks + res_blocks == 0) return 0;
-  jacobi_restrict_kernel<T><<<jac_blocks + res_blocks, THREADS, 0, stream>>>(
-      (const T*)r, (const T*)block_inv, (const T*)arms, (const int*)members, (T*)zj, (T*)rc, L, PN,
-      NA, W, jac_blocks);
+                           int L, long long PN, int NA, int W, int span, int vec, int warps,
+                           int lanes, int jacobi_first, cudaStream_t stream) {
+  RestrictPlan plan;
+  plan.jacobi_first = jacobi_first;
+  plan.span = span;
+  plan.jac_blocks = block_inv != nullptr ? (int)((PN + span - 1) / span) : 0;
+  plan.passes = (L + lanes - 1) / lanes;
+  const long long res_warps = members != nullptr ? (long long)plan.passes * NA : 0;
+  plan.res_blocks = (int)((res_warps + warps - 1) / warps);
+  const long long blocks = (long long)plan.jac_blocks * L + plan.res_blocks;
+  if (PN >= (1LL << 30) || warps < 1 || warps > WARPS || span < 1 ||
+      (lanes != 1 && lanes != 2 && lanes != 4 && lanes != kMaxPassLanes) ||
+      (block_inv != nullptr && !valid_plan<T>((int)PN, plan.jac_blocks, span, vec)) ||
+      blocks >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (blocks == 0) return 0;
+  auto kernel = vec == 1 ? restrict_kernel<T, 1>(lanes) : restrict_kernel<T, kVec<T>>(lanes);
+  kernel<<<(unsigned)blocks, warps * 32, 0, stream>>>(
+      (const T*)r, (const T*)block_inv, (const T*)arms, (const int*)members, (T*)zj, (T*)rc, L,
+      (int)PN, NA, W, plan);
   return (int)cudaGetLastError();
 }
 
@@ -583,8 +729,13 @@ int load_kernels() {
   cudaFuncAttributes attr;
   const void* kernels[] = {
       (const void*)alpha_kernel<T, 1>, (const void*)alpha_kernel<T, kVec<T>>,
-      (const void*)update_xr_kernel<T>, (const void*)jacobi_restrict_kernel<T>,
-      (const void*)prolong_dots_kernel<T, 1>, (const void*)prolong_dots_kernel<T, kVec<T>>,
+      (const void*)update_xr_kernel<T, 1>, (const void*)update_xr_kernel<T, kVec<T>>,
+      (const void*)jacobi_restrict_kernel<T, 1, 1>, (const void*)jacobi_restrict_kernel<T, 1, 2>,
+      (const void*)jacobi_restrict_kernel<T, 1, 4>, (const void*)jacobi_restrict_kernel<T, 1, 8>,
+      (const void*)jacobi_restrict_kernel<T, kVec<T>, 1>,
+      (const void*)jacobi_restrict_kernel<T, kVec<T>, 2>,
+      (const void*)jacobi_restrict_kernel<T, kVec<T>, 4>,
+      (const void*)jacobi_restrict_kernel<T, kVec<T>, 8>, (const void*)prolong_dots_kernel<T, 1>, (const void*)prolong_dots_kernel<T, kVec<T>>,
       (const void*)update_p_kernel<T, 1>, (const void*)update_p_kernel<T, kVec<T>>,
   };
   for (const void* kernel : kernels) {
@@ -637,15 +788,17 @@ int fea_cg_alpha(int dbl, void* p, void* Ap, void* rz, void* r2, void* atol2, vo
 }
 
 int fea_cg_update_xr(int dbl, void* x, void* r, void* p, void* Ap, void* alpha, void* lane, int L,
-                     int P, int Ns, void* stream) {
+                     int P, int Ns, int blocks, int span, int vec, void* stream) {
   auto launch = dbl ? launch_update_xr<double> : launch_update_xr<float>;
-  return launch(x, r, p, Ap, alpha, lane, L, P, Ns, (cudaStream_t)stream);
+  return launch(x, r, p, Ap, alpha, lane, L, P, Ns, blocks, span, vec, (cudaStream_t)stream);
 }
 
 int fea_cg_jacobi_restrict(int dbl, void* r, void* block_inv, void* arms, void* members, void* zj,
-                           void* rc, int L, long long PN, int NA, int W, void* stream) {
+                           void* rc, int L, long long PN, int NA, int W, int span, int vec,
+                           int warps, int lanes, int jacobi_first, void* stream) {
   auto launch = dbl ? launch_jacobi_restrict<double> : launch_jacobi_restrict<float>;
-  return launch(r, block_inv, arms, members, zj, rc, L, PN, NA, W, (cudaStream_t)stream);
+  return launch(r, block_inv, arms, members, zj, rc, L, PN, NA, W, span, vec, warps, lanes,
+                jacobi_first, (cudaStream_t)stream);
 }
 
 int fea_cg_prolong_dots(int dbl, void* zj, void* zc, void* agg, void* arms, void* free_mask,

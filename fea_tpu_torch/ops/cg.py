@@ -19,11 +19,11 @@ updated in place, so a captured block replays on the same memory.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (a dtype other than float32 / float64, another device,
-a non-contiguous tensor; for `cg_alpha`, `prolong_dots` and `cg_update_p`
-where the node count takes 16-byte loads, a vector that does not start on
-a 16-byte boundary); it takes its plain version (`*_reference`, with
-the same signature: the arithmetic of the torch ops the loop ran before,
-written into the state in place) only where the tensors lie on the CPU. Every kernel launch adds one to its wrapper's
+a non-contiguous tensor; where the node count takes 16-byte loads, a
+vector that does not start on a 16-byte boundary); it takes its plain
+version (`*_reference`, with the same signature: the arithmetic of the
+torch ops the loop ran before, written into the state in place) only where
+the tensors lie on the CPU. Every kernel launch adds one to its wrapper's
 `launches`; a launch recorded in a CUDA graph counts at each replay of it.
 """
 
@@ -32,6 +32,7 @@ import ctypes
 import functools
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -56,6 +57,19 @@ PROLONG_NODES = 4 * THREADS
 # load of 4 f32 nodes a thread), 128 blocks over phase 9's chunk (16
 # segments of 8,192 nodes) on the card's 132 SMs
 UPDATE_P_NODES = 4 * THREADS
+# cg_update_xr: the same grid, a block per UPDATE_XR_NODES nodes of a segment
+UPDATE_XR_NODES = 4 * THREADS
+# jacobi_restrict: blocks of RESTRICT_WARPS warps; a warp per aggregate for
+# up to RESTRICT_LANES lanes a pass (the 3 sums of each kept in
+# registers), the restriction's blocks first in the grid (its chain of
+# dependent loads is the longer); Jacobi blocks of JACOBI_NODES nodes of a
+# lane. Over phase 9's chunk (4 lanes of 32,768 nodes, 2,048 aggregates):
+# 1,024 restriction blocks and 256 Jacobi blocks of 64 threads, the plan
+# that tools/sweep_prolong_dots.py chose (PERF.md)
+JACOBI_NODES = 512
+RESTRICT_WARPS = 2
+RESTRICT_LANES = 8
+JACOBI_FIRST = False
 ALIGN = 16  # bytes: the alignment of every vector the CG kernels and band_matvec load
 
 
@@ -70,8 +84,8 @@ def _library():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
         "fea_cg_alpha": [i] + [p] * 11 + [i] * 8 + [p],
-        "fea_cg_update_xr": [i] + [p] * 6 + [i] * 3 + [p],
-        "fea_cg_jacobi_restrict": [i] + [p] * 6 + [i, ll, i, i, p],
+        "fea_cg_update_xr": [i] + [p] * 6 + [i] * 6 + [p],
+        "fea_cg_jacobi_restrict": [i] + [p] * 6 + [i, ll] + [i] * 7 + [p],
         "fea_cg_prolong_dots": [i] + [p] * 7 + [i] + [p] * 8 + [i] * 7 + [p],
         "fea_cg_update_p": [i] + [p] * 5 + [i] * 6 + [p],
     }
@@ -124,10 +138,44 @@ def update_p_plan(seg_nodes: int):
     return -(-seg_nodes // UPDATE_P_NODES), UPDATE_P_NODES
 
 
+def update_xr_plan(seg_nodes: int):
+    """(blocks, span) of `cg_update_xr` per segment, laid out as
+    `update_p_plan`'s."""
+    return -(-seg_nodes // UPDATE_XR_NODES), UPDATE_XR_NODES
+
+
+class RestrictPlan(NamedTuple):
+    """The grid of `jacobi_restrict`: Jacobi blocks of `span` nodes of a
+    lane (a multiple of 4) and restriction blocks of `warps` warps, a warp
+    per (pass, aggregate), each pass `lanes` lanes (1, 2, 4 or 8); the
+    Jacobi blocks first in the grid where `jacobi_first`."""
+    span: int
+    warps: int
+    lanes: int
+    jacobi_first: bool
+
+    def grid(self, lanes: int, lane_nodes: int, aggregates: int):
+        """(Jacobi blocks a lane, passes, restriction blocks) over `lanes`
+        lanes of `lane_nodes` nodes and `aggregates` aggregates (both
+        roles), as the kernel's launch takes them."""
+        passes = -(-lanes // self.lanes)
+        return -(-lane_nodes // self.span), passes, -(-passes * aggregates // self.warps)
+
+
+def restrict_plan(lanes: int) -> RestrictPlan:
+    """The plan of `jacobi_restrict` over `lanes` lanes: passes of the
+    fewest lanes (a power of two) that take all the lanes in one pass, up
+    to RESTRICT_LANES."""
+    per_pass = 1
+    while per_pass < min(lanes, RESTRICT_LANES):
+        per_pass *= 2
+    return RestrictPlan(JACOBI_NODES, RESTRICT_WARPS, per_pass, JACOBI_FIRST)
+
+
 def vector_width(seg_nodes: int, dtype) -> int:
-    """Values of the CG kernels' vector loads (`cg_alpha`, `prolong_dots`,
-    `cg_update_p`): 16 bytes where every segment starts on a multiple of
-    them, else one (a ragged node count)."""
+    """Values of the CG kernels' vector loads: 16 bytes where every
+    segment (for the Jacobi term: every lane) starts on a multiple of them,
+    else one (a ragged node count)."""
     vec = ALIGN // (torch.finfo(dtype).bits // 8)
     return vec if seg_nodes % vec == 0 else 1
 
@@ -378,12 +426,17 @@ def cg_update_xr(state, Ap):
         return cg_update_xr_reference(state, Ap)
     _check(state.x.device, state.x.dtype, {
         "Ap": (Ap, None, state.p.shape), **_state_tensors(state, "x", "r", "p", "alpha", "lane")})
+    vec = vector_width(state.Ns, state.x.dtype)
+    if vec > 1:
+        _check_aligned("cg_update_xr", {"state.x": state.x, "state.r": state.r,
+                                        "state.p": state.p, "Ap": Ap})
+    blocks, span = update_xr_plan(state.Ns)
     lib = load(state.x.device.index or 0)
     with torch.cuda.device(state.x.device):
         err = lib.fea_cg_update_xr(
             int(state.x.dtype == torch.float64),
             *map(_ptr, (state.x, state.r, state.p, Ap, state.alpha, state.lane)),
-            state.k.shape[0], state.P, state.Ns, _stream(state.x.device))
+            state.k.shape[0], state.P, state.Ns, blocks, span, vec, _stream(state.x.device))
     _raise_on(err, "cg_update_xr launch")
     _count(cg_update_xr)
 
@@ -423,11 +476,16 @@ def jacobi_restrict(r, block_inv, arms, members, zj, rc):
         "rc": (rc if members is not None else None, None, (L, NA, 3))})
     if (block_inv is None) != (zj is None) or (members is None) != (rc is None):
         raise ValueError("jacobi_restrict: block_inv goes with zj, members with arms and rc")
+    vec = vector_width(PN, r.dtype) if block_inv is not None else 1
+    if vec > 1:
+        _check_aligned("jacobi_restrict", {"r": r, "block_inv": block_inv, "zj": zj})
+    plan = restrict_plan(L)
     lib = load(r.device.index or 0)
     with torch.cuda.device(r.device):
         err = lib.fea_cg_jacobi_restrict(
             int(r.dtype == torch.float64), *map(_ptr, (r, block_inv, arms, members, zj, rc)),
-            L, PN, NA, W, _stream(r.device))
+            L, PN, NA, W, plan.span, vec, plan.warps, plan.lanes, int(plan.jacobi_first),
+            _stream(r.device))
     _raise_on(err, "jacobi_restrict launch")
     _count(jacobi_restrict)
 

@@ -1,9 +1,11 @@
 """The CG loop's kernels as they are laid out for Hopper:
 `ops.cg.prolong_dots` and `ops.cg.cg_alpha` (a thread-block cluster per
-segment), `ops.cg.cg_update_p` (a grid of blocks per segment, 16-byte
-loads; all three in `csrc/cg_segmented.cu`) and `ops.band.band_matvec`
-(the tables staged in shared memory up to each slice's widest row,
-`csrc/band_matvec.cu`).
+segment), `ops.cg.cg_update_p` and `ops.cg.cg_update_xr` (a grid of
+blocks per segment, 16-byte loads), `ops.cg.jacobi_restrict` (the Jacobi
+term on a grid of blocks per lane, the restriction a warp per aggregate
+for all lanes of a pass; all five in `csrc/cg_segmented.cu`) and
+`ops.band.band_matvec` (the tables staged in shared memory up to each
+slice's widest row, `csrc/band_matvec.cu`).
 
 On the CPU, what the host decides for the kernels:
 - `prolong_plan` and `alpha_plan` at every node bucket of datagen
@@ -12,9 +14,16 @@ On the CPU, what the host decides for the kernels:
   segment exactly once, each starting on a multiple of a 16-byte load;
   `update_p_plan` the same with blocks of one grid, and each thread's
   loads (V nodes at a time) covering every node once; at phase 9's chunk
-  both fill 128 of the card's 132 SMs; `vector_width` takes 16-byte
-  loads where the node count allows them; `SegmentedState` allocates the
-  loop's tensors and no scratch;
+  both fill 128 of the card's 132 SMs; `update_xr_plan` as
+  `update_p_plan`; `restrict_plan` taking every (lane, aggregate) once
+  for 1, 3, 4 and 12 lanes (two passes) and its Jacobi blocks every node
+  of a lane once, at least 128 blocks of each role at phase 9's chunk;
+  `vector_width` takes 16-byte loads where the node count allows them;
+  `SegmentedState` allocates the loop's tensors and no scratch;
+- the restriction's order: the kernel's tree (each lane keeping half of
+  its values a step) gives each value the bits of lane 0 of a shuffle-down
+  tree (the parent kernel's order), and a numpy emulation of that order
+  (`restrict_emulation`) is the plain restriction within 1e-5 of its span;
 - `band_tables`' width table (`fem.banded.slice_widths`) equals the widest
   row of each slice of the compacted band on the 3-plate chunk of tests/test_torch_flatgroup.py
   (plates of three sizes) and on random ragged tables;
@@ -43,7 +52,16 @@ in f64), the run and lane flags equal, p bit for bit. Each kernel repeats
 its bits over 50 launches; replayed from a CUDA graph they give the bits of
 their launches, counted at each replay; the wrappers raise on CPU, bf16,
 non-contiguous and misaligned inputs (on a misaligned vector only where
-the node count takes 16-byte loads).
+the node count takes 16-byte loads). `cg_update_xr` and `jacobi_restrict`
+(all three modes: both roles, the Jacobi term alone, the restriction
+alone) against their plain versions at a ragged node count, the
+production chunk, 2 lanes of 4 segments of the largest bucket and 12
+lanes (two passes), f32 and f64: x, r and zj bit for bit (a stopped lane
+keeps x and r; a stopped segment of a running lane takes x + 0 p, NaN
+under an infinite p and +0.0 from -0.0), rc within 1e-5 of its span (1e-12
+in f64) and bit for bit the emulation of the kernel's order, an
+all-padding row 0; the same bits over 50 launches and under graph replay;
+the wrappers raise on CPU, bf16, non-contiguous and misaligned inputs.
 """
 
 import numpy as np
@@ -128,6 +146,149 @@ def test_update_p_plan_covers_every_node_once(seg_nodes):
         assert a1 == b0
     assert all(n1 > n0 for n0, n1 in blocks)
     assert_loads_cover(seg_nodes, blocks)
+
+
+@pytest.mark.parametrize("seg_nodes", SHAPE_BUCKETS + RAGGED_NODES)
+def test_update_xr_plan_covers_every_node_once(seg_nodes):
+    count, span = cg.update_xr_plan(seg_nodes)
+    blocks = [(b * span, min(seg_nodes, (b + 1) * span)) for b in range(count)]
+    assert count >= 1 and span % 4 == 0
+    assert blocks[0][0] == 0 and blocks[-1][1] == seg_nodes
+    for (_, a1), (b0, _) in zip(blocks, blocks[1:]):
+        assert a1 == b0
+    assert all(n1 > n0 for n0, n1 in blocks)
+    assert_loads_cover(seg_nodes, blocks)
+
+
+def restricted(plan, lanes, aggregates):
+    """How many times the restriction's warps take each (lane, aggregate),
+    as the kernel's grid of plan.grid(...) blocks of plan.warps warps
+    assigns them: warp w to pass w // NA of aggregate w % NA, the pass to
+    its `plan.lanes` lanes (fewer in the last)."""
+    _, passes, blocks = plan.grid(lanes, 1, aggregates)
+    seen = np.zeros((lanes, aggregates), np.int64)
+    for wid in range(blocks * plan.warps):
+        if wid >= passes * aggregates:
+            continue
+        pass_, a = divmod(wid, aggregates)
+        l0 = pass_ * plan.lanes
+        seen[l0:min(lanes, l0 + plan.lanes), a] += 1
+    return seen
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 4, 12])
+@pytest.mark.parametrize("lane_nodes, aggregates", [(32768, 2048), (5005, 312), (1001, 1)])
+def test_restrict_plan_covers_every_aggregate_and_lane_once(lanes, lane_nodes, aggregates):
+    plan = cg.restrict_plan(lanes)
+    assert plan.lanes in (1, 2, 4, 8) and 1 <= plan.warps <= cg.THREADS // 32
+    assert plan.lanes >= min(lanes, cg.RESTRICT_LANES)  # one pass where the registers allow
+    assert plan.lanes < 2 * lanes  # no pass of more lanes than it needs but a power of two
+    assert (restricted(plan, lanes, aggregates) == 1).all()
+    # the Jacobi blocks of a lane, each of blockDim = 32 warps threads
+    # taking V nodes a load, cover the lane's nodes once
+    jac, _, _ = plan.grid(lanes, lane_nodes, aggregates)
+    blocks = [(b * plan.span, min(lane_nodes, (b + 1) * plan.span)) for b in range(jac)]
+    assert plan.span % 4 == 0 and blocks[-1][1] == lane_nodes
+    assert all(n1 > n0 for n0, n1 in blocks)
+    for dtype in (torch.float32, torch.float64):
+        vec = cg.vector_width(lane_nodes, dtype)
+        seen = np.zeros(lane_nodes, np.int64)
+        threads = 32 * plan.warps
+        for n0, n1 in blocks:
+            for t in range(threads):
+                for n in range(n0 + t * vec, n1, threads * vec):
+                    assert n + vec <= n1
+                    seen[n:n + vec] += 1
+        assert (seen == 1).all()
+
+
+def shuffle_tree(values):
+    """Each warp lane's sum after a shuffle-down tree over the last axis (32
+    lanes), rounded at each step: lane i adds lane i + off (a lane past the
+    warp its own value)."""
+    v = values.copy()
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., np.where(lanes + off < 32, lanes + off, lanes)]
+    return v
+
+
+def halving_tree(values):
+    """The kernel's `tree_sums` on (..., 32 lanes, N values), N a power of
+    two: at each offset a lane adds its partner's (lane ^ off) partials,
+    keeping the upper half of its values where the bit `off` of its lane is
+    set and the lower half elsewhere while it holds more than one. The one
+    value each lane ends with, (..., 32)."""
+    v = values.copy()
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        partner, upper = lanes ^ off, ((lanes & off) != 0)[:, None]
+        half = v.shape[-1] // 2
+        if half:
+            send = np.where(upper, v[..., :half], v[..., half:])
+            v = np.where(upper, v[..., half:], v[..., :half]) + send[..., partner, :]
+        else:
+            v = v + v[..., partner, :]
+    return v[..., 0]
+
+
+def restrict_emulation(r, arms, members):
+    """rc (L, NA, 3) in the order the restriction kernel sums it, in numpy
+    at r's precision (each product and sum rounded): member w of a row on
+    warp lane w mod 32, each warp lane's sums in the order of w, then lane 0
+    of a shuffle-down tree over the 32 warp lanes. A padding entry adds 0,
+    which leaves a sum that starts at +0 as it is."""
+    r, arms, members = (t.cpu().numpy() for t in (r, arms, members))
+    L, PN = r.shape[0], r.shape[1] // 2
+    NA, W = members.shape
+    sums = np.zeros((L, NA, 3, 32), r.dtype)
+    for w in range(W):
+        real = members[:, w] < PN
+        m = np.where(real, members[:, w], 0)
+        rx, ry = np.where(real, r[:, m], 0), np.where(real, r[:, PN + m], 0)
+        ax, ay = np.where(real, arms[m, 0], 0), np.where(real, arms[m, 1], 0)
+        sums[..., 0, w % 32] += rx
+        sums[..., 1, w % 32] += ry
+        sums[..., 2, w % 32] += (-ay * rx) + (ax * ry)
+    return torch.from_numpy(shuffle_tree(sums)[..., 0])
+
+
+@pytest.mark.parametrize("values", [4, 8, 16, 32])
+def test_the_restriction_tree_gives_the_shuffle_down_sums(values):
+    # the kernel's tree leaves value k on the lanes lid with lid / (32 / N)
+    # == k, with the bits lane 0 of a shuffle-down tree (the order of the
+    # kernel before it) ends with
+    rng = np.random.default_rng(3)
+    for dtype in (np.float32, np.float64):
+        v = (rng.normal(size=(200, 32, values))
+             * 10.0 ** rng.integers(-6, 6, (200, 32, values))).astype(dtype)
+        down = shuffle_tree(np.swapaxes(v, 1, 2))[..., 0]  # (200, N)
+        got = halving_tree(v)  # (200, 32)
+        assert (got == down[:, np.arange(32) // (32 // values)]).all()
+        assert not (np.swapaxes(v, 1, 2).cumsum(axis=-1)[..., -1] == down).all()  # order matters
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_restrict_emulation_is_the_plain_restriction(dtype):
+    st = tc.random_state("cpu", dtype, 3, 5, 1001, seed=2)
+    tables = tc.coarse_tables("cpu", dtype, 3, 5005, 312, 32, seed=3)
+    rc = st.r.new_empty((3, 312, 3))
+    cg.jacobi_restrict_reference(st.r, None, tables["arms"], tables["members"], None, rc)
+    got = restrict_emulation(st.r, tables["arms"], tables["members"])
+    span = float(rc.max() - rc.min())
+    assert float((got - rc).abs().max()) <= tc.KERNEL_TOL[dtype] * span
+
+
+def test_update_xr_and_restrict_fill_the_card_at_the_production_chunk():
+    lanes, plates, nodes, aggregates = 4, 4, 8192, 4 * 512  # phase 9's chunk
+    least = lanes * plates * cg.update_p_plan(nodes)[0]
+    assert least == 128
+    assert lanes * plates * cg.update_xr_plan(nodes)[0] >= least
+    plan = cg.restrict_plan(lanes)
+    jac, passes, res = plan.grid(lanes, plates * nodes, aggregates)
+    assert passes == 1 and lanes * jac >= least and res >= least
+    loads = cg.vector_width(plates * nodes, torch.float32) * 32 * plan.warps
+    assert plan.span % loads == 0  # whole 16-byte loads a thread
 
 
 def test_alpha_and_update_p_fill_the_card_at_the_production_chunk():
@@ -536,3 +697,185 @@ def test_alpha_and_update_p_raise_on_what_the_kernels_do_not_take():
     cg.cg_update_p(mine)
     cg.cg_update_p_reference(plain)
     assert torch.equal(mine.p, plain.p)
+
+
+# L lanes, P plates, Ns nodes a plate, NA aggregates, W members at most: the
+# scalar route (3 lanes in a pass of 4), the production chunk, 2 lanes of 4
+# segments of the largest bucket (rows of 129 members) and 12 lanes (two
+# passes, the second of 4)
+XR_SHAPES = {"ragged": (3, 5, 1001, 312, 32), "chunk": (4, 4, 8192, 2048, 32),
+             "bucket 131072": (2, 4, 131072, 4096, 136), "12 lanes": (12, 2, 1024, 128, 24)}
+MODES = {"both": ("block_inv", "members"), "jacobi": ("block_inv",), "restrict": ("members",)}
+
+
+def same_bits(a, b):
+    """a and b hold the same bits (NaNs included)."""
+    ints = {1: torch.uint8, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+def xr_case(device, dtype, shape):
+    """The alpha_p_case state at a shape of XR_SHAPES (lane 0 stopped, the
+    last lane running), its last lane's segment 0 stopped (alpha 0) with a
+    node of p infinite and a node of x -0.0 (p 1.0 there), which x + 0 p
+    makes NaN and +0.0; Ap; and the coarse tables with an all-padding row first and
+    last."""
+    L, P, Ns, NA, W = XR_SHAPES[shape]
+    st = tc.random_state(device, dtype, L, P, Ns, seed=7)
+    st.lane[0], st.lane[-1] = False, True
+    st.alpha[-1, 0] = 0.0
+    st.segments(st.p)[-1, 0, 0, 3] = float("inf")
+    st.segments(st.x)[-1, 1, 0, 5] = -0.0
+    st.segments(st.p)[-1, 1, 0, 5] = 1.0  # -0.0 + 0 * 1.0 is +0.0
+    scale = np.random.default_rng(8).uniform(0.5, 1.5, size=tuple(st.p.shape))
+    tables = tc.coarse_tables(device, dtype, L, P * Ns, NA - 2, W, seed=9)
+    pad = torch.full((1, W), P * Ns, dtype=torch.int32, device=device)
+    tables["members"] = torch.cat([pad, tables["members"], pad]).contiguous()
+    return st, st.p * torch.from_numpy(scale).to(device, dtype), tables
+
+
+def run_jacobi(fn, r, tables, mode):
+    L, NA = r.shape[0], tables["members"].shape[0]
+    given = {name: tables[name] if name in MODES[mode] else None for name in ("block_inv", "members")}
+    out = {"zj": torch.full_like(r, 7.0) if given["block_inv"] is not None else None,
+           "rc": r.new_full((L, NA, 3), 7.0) if given["members"] is not None else None}
+    fn(r, given["block_inv"], tables["arms"], given["members"], out["zj"], out["rc"])
+    return {k: v for k, v in out.items() if v is not None}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", XR_SHAPES)
+def test_update_xr_matches_its_plain_version(shape, dtype):
+    device = tc.cuda_or_skip()
+    st, Ap, _ = xr_case(device, dtype, shape)
+    mine, plain = st.clone(), st.clone()
+    before = cg.cg_update_xr.launches
+    cg.cg_update_xr(mine, Ap)
+    cg.cg_update_xr_reference(plain, Ap)
+    torch.cuda.synchronize()
+    assert cg.cg_update_xr.launches == before + 1
+    for name in cg.SegmentedState.TENSORS:  # x and r bit for bit, the rest untouched
+        assert same_bits(getattr(mine, name), getattr(plain, name)), name
+    assert same_bits(mine.x[0], st.x[0]) and same_bits(mine.r[0], st.r[0])  # the stopped lane
+    # the stopped segment of a running lane takes x + 0 p, as fea_tpu does
+    assert torch.isnan(st.segments(mine.x)[-1, 0, 0, 3])
+    x0 = st.segments(mine.x)[-1, 1, 0, 5]
+    assert float(x0) == 0.0 and not bool(torch.signbit(x0))
+    assert not torch.equal(mine.x[-1], st.x[-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", XR_SHAPES)
+def test_jacobi_restrict_matches_its_plain_version(shape, dtype, mode):
+    device = tc.cuda_or_skip()
+    st, _, tables = xr_case(device, dtype, shape)
+    before = cg.jacobi_restrict.launches
+    got = run_jacobi(cg.jacobi_restrict, st.r, tables, mode)
+    want = run_jacobi(cg.jacobi_restrict_reference, st.r, tables, mode)
+    torch.cuda.synchronize()
+    assert cg.jacobi_restrict.launches == before + 1
+    assert sorted(got) == sorted({"both": ["rc", "zj"], "jacobi": ["zj"], "restrict": ["rc"]}[mode])
+    if "zj" in got:
+        assert same_bits(got["zj"], want["zj"])
+    if "rc" in got:
+        # within the tolerance of the plain version's sums, bit for bit the
+        # kernel's order (the parent kernel's); the padding rows 0
+        tc.compare("jacobi_restrict", {"rc": got["rc"]}, {"rc": want["rc"]}, tc.KERNEL_TOL[dtype])
+        emulated = restrict_emulation(st.r, tables["arms"], tables["members"]).to(device)
+        assert same_bits(got["rc"], emulated)
+        for row in (0, -1):
+            assert not got["rc"][:, row].any() and not torch.signbit(got["rc"][:, row]).any()
+
+
+@pytest.mark.gpu
+def test_update_xr_and_jacobi_restrict_repeat_their_bits_and_replay_them():
+    device = tc.cuda_or_skip()
+    st, Ap, tables = xr_case(device, torch.float32, "chunk")
+    first = st.clone()
+    cg.cg_update_xr(first, Ap)
+    first_out = run_jacobi(cg.jacobi_restrict, first.r, tables, "both")
+    for _ in range(50):
+        again = st.clone()
+        cg.cg_update_xr(again, Ap)
+        out = run_jacobi(cg.jacobi_restrict, again.r, tables, "both")
+        assert same_bits(again.x, first.x) and same_bits(again.r, first.r)
+        for name in out:
+            assert same_bits(out[name], first_out[name]), name
+    eager, graphed = st.clone(), st.clone()
+    outs = {id(s): {"zj": torch.empty_like(s.r), "rc": s.r.new_empty((s.r.shape[0], tables["members"].shape[0], 3))}
+            for s in (eager, graphed)}
+
+    def body(s):
+        cg.cg_update_xr(s, Ap)
+        o = outs[id(s)]
+        cg.jacobi_restrict(s.r, tables["block_inv"], tables["arms"], tables["members"], o["zj"], o["rc"])
+
+    for _ in range(3):
+        body(eager)
+    block = cg.capture(lambda: body(graphed), lambda: None, device)
+    counts = (cg.cg_update_xr.launches, cg.jacobi_restrict.launches)
+    for _ in range(3):
+        block.replay()
+    torch.cuda.synchronize()
+    block.close()
+    assert (cg.cg_update_xr.launches, cg.jacobi_restrict.launches) == (counts[0] + 3, counts[1] + 3)
+    for name in cg.SegmentedState.TENSORS:
+        assert same_bits(getattr(graphed, name), getattr(eager, name)), name
+    for name in ("zj", "rc"):
+        assert same_bits(outs[id(graphed)][name], outs[id(eager)][name]), name
+
+
+@pytest.mark.gpu
+def test_update_xr_and_jacobi_restrict_raise_on_what_the_kernels_do_not_take():
+    device = tc.cuda_or_skip()
+    st, Ap, tables = xr_case(device, torch.float32, "chunk")
+    with pytest.raises(ValueError):
+        cg.cg_update_xr(st, Ap.cpu())
+    with pytest.raises(ValueError):
+        cg.cg_update_xr(st, Ap.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        cg.cg_update_xr(st, Ap.T.contiguous().T)
+    with pytest.raises(ValueError, match="16-byte"):
+        cg.cg_update_xr(st, misaligned(Ap))
+    off = st.clone()
+    off.x = misaligned(off.x)
+    with pytest.raises(ValueError, match="16-byte"):
+        cg.cg_update_xr(off, Ap)
+    r, (block_inv, arms, members) = st.r, (tables[n] for n in ("block_inv", "arms", "members"))
+    L, NA = r.shape[0], members.shape[0]
+    zj, rc = torch.empty_like(r), r.new_empty((L, NA, 3))
+    with pytest.raises(ValueError):
+        cg.jacobi_restrict(r, block_inv.cpu(), arms, members, zj, rc)
+    with pytest.raises(ValueError):
+        cg.jacobi_restrict(r, block_inv, arms, members.cpu(), zj, rc)
+    with pytest.raises(TypeError):
+        cg.jacobi_restrict(r.bfloat16(), block_inv.bfloat16(), arms.bfloat16(), members,
+                           zj.bfloat16(), rc.bfloat16())
+    with pytest.raises(ValueError):
+        cg.jacobi_restrict(r, block_inv.transpose(0, 1).contiguous().transpose(0, 1), arms,
+                           members, zj, rc)
+    with pytest.raises(ValueError):
+        cg.jacobi_restrict(r, block_inv, arms, members.long(), zj, rc)
+    for name in ("r", "block_inv", "zj"):
+        args = {"r": r, "block_inv": block_inv, "zj": zj}
+        args[name] = misaligned(args[name])
+        with pytest.raises(ValueError, match="16-byte"):
+            cg.jacobi_restrict(args["r"], args["block_inv"], arms, members, args["zj"], rc)
+    # the restriction alone, and the scalar route of a ragged node count,
+    # take a misaligned r
+    got = r.new_empty((L, NA, 3))
+    cg.jacobi_restrict(misaligned(r), None, arms, members, None, got)
+    cg.jacobi_restrict_reference(r, None, arms, members, None, rc)
+    tc.compare("jacobi_restrict", {"rc": got}, {"rc": rc}, tc.KERNEL_TOL[torch.float32])
+    st, Ap, tables = xr_case(device, torch.float32, "ragged")
+    mine, plain = st.clone(), st.clone()
+    mine.x, mine.r = misaligned(mine.x), misaligned(mine.r)
+    cg.cg_update_xr(mine, misaligned(Ap))
+    cg.cg_update_xr_reference(plain, Ap)
+    assert same_bits(mine.x, plain.x) and same_bits(mine.r, plain.r)
+    got = run_jacobi(cg.jacobi_restrict, misaligned(st.r), tables, "jacobi")
+    want = run_jacobi(cg.jacobi_restrict_reference, st.r, tables, "jacobi")
+    assert same_bits(got["zj"], want["zj"])
