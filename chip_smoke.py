@@ -3,10 +3,14 @@ CUDA card.
 
     python3 chip_smoke.py [--against TREE] [--only PHASES]
 
-Set-up: TF32 off for matmuls and convolutions; the four kernel libraries
-(flash attention, fused GroupNorm+SiLU, the CG loop, the band operator) are
-built at once, one nvcc each, from fea_tpu_torch/csrc into
-fea_tpu_torch/_build.
+Set-up: TF32 off for matmuls (PyTorch's default, which the FEM requires);
+the model's f32 convolutions at the port's precision policy
+(fea_tpu_torch/utils/precision.py: tf32), as `python -m fea_tpu_torch`
+runs them, and nothing in this script sets cuDNN's precision for the
+process: a check whose tolerance holds strict f32 runs its model work
+inside model_precision(conv="ieee"). The four kernel libraries (flash
+attention, fused GroupNorm+SiLU, the CG loop, the band operator) are built
+at once, one nvcc each, from fea_tpu_torch/csrc into fea_tpu_torch/_build.
 Phase 1: the flash kernel (tensor cores: 3xTF32 for f32, bf16 products
          for bf16) against its plain PyTorch version at the sampler's shape
          (BH 8, Nq 1024, Nk 1028, D 32) and a ragged one, f32 and bf16, timed
@@ -15,8 +19,8 @@ Phase 1: the flash kernel (tensor cores: 3xTF32 for f32, bf16 products
 Phase 2: the conditional-DDPM sampler at full width (FDNUNet input_dim 64,
          4 stages, 256 px, flash attention, random seeded weights) answers
          2 requests with 25 denoising steps; the flash kernel must have
-         launched 3 x 25 times and the GroupNorm+SiLU forward 9 x 25, and the
-         output must agree with the same sampler run through plain
+         launched 3 x 25 times and the GroupNorm+SiLU forward 9 x 25; at
+         ieee, the output must agree with the same sampler run through plain
          attention, and the card with the CPU on a small input.
          The GroupNorm+SiLU kernels take contiguous NCHW x and raise on any
          other layout, so phases 2, 3, 5 and 6 running through them show
@@ -37,7 +41,7 @@ Phase 5: the regression Trainer at full width (input_dim 64, 4 stages,
          dataset: train() takes a warm-up step and 3 more in f32 (18 + 18
          GroupNorm+SiLU launches per step), its checkpoint loads back bit for
          bit into a bf16 trainer, which takes 4 steps; one 32 px step on the
-         card against the same step on the CPU.
+         card at ieee against the same step on the CPU.
 Phase 6: the DiffusionTrainer at full width (FDNUNet input_dim 64, 4 stages,
          256 px, batch 4): train() takes a warm-up step and 2 more (9 + 9
          launches per step).
@@ -90,8 +94,8 @@ Phase 11: the regression Trainer at full width from
 Phase 12: the diffusion denoiser at full width with full attention at
          every stage and the self-conditioning input (FDNUNet input_dim
          64, 4 stages, flash attention, num_condition_channels 2, seeded
-         weights). At 64 px one forward against the same model through
-         plain attention; at 256 px, batch 2, one forward: 9 flash
+         weights). At 64 px one forward at ieee against the same model
+         through plain attention; at 256 px, batch 2, one forward: 9 flash
          launches (one per FullAttention site) and 9 GroupNorm+SiLU; its
          stage-0 flash call (BH 8, Nq 65,536, Nk 65,540, D 32) against the
          plain version on its first 1,024 query rows over every key; device
@@ -118,7 +122,7 @@ Phase 14: data parallelism (fea_tpu_torch.parallel). (a) The phase 5
          gloo ranks on this card (parallel.launch) at the same global batch
          of 16, 8 rows each: both ranks' states equal bit for bit, the first
          loss and reduced gradients within 1e-4 / 1e-3 of (a)'s one-rank
-         step, 18 + 18 GroupNorm+SiLU launches per step in every rank, one
+         step (each first step at ieee, the others at the policy's), 18 + 18 GroupNorm+SiLU launches per step in every rank, one
          checkpoint written by rank 0, sample_and_save through the row
          gather; ms per step, peak memory, ms per all-reduce of the
          gradients and per gather of a sample batch's rows, per rank. (c)
@@ -177,6 +181,20 @@ Phase 16: the CG loop's kernels (csrc/cg_segmented.cu) and the band
          they move (the bound's), the band kernel over the bytes it is
          modelled to move (each slice up to its widest row) beside the
          bound's.
+Phase 17: the model's precision: the sampler's FDNUNet forward at 256 px,
+         batches 2 and 4, the regression predict at batch 4 and one f32
+         regression train step at batch 16, each at ieee, at tf32 (the
+         shipped setting) and in bf16 (the yardstick, a setting a package
+         ships: the FDNUNet's convolutions in one bf16 pass, as on
+         fea_tpu's TPU; the Trainer's compute_dtype="bfloat16" route for
+         predict and the step), timed in turns; the differences of tf32
+         and bf16 from ieee (outputs; the step's loss and largest relative
+         gradient difference of a module). Raises where tf32 differs by
+         more than bf16, or not at all.
+
+Phases 2, 3, 5, 6, 7, 11, 12, 13 and 14 print the precision the model's
+convolutions ran at, read at every nn.Conv2d by a global module hook over
+the warm-up (a hook slows every module call, so timed runs go without).
 
 Kernel times are device times: CUDA events around calls that the host
 queued behind a device-side wait, each function timed in turns.
@@ -187,9 +205,10 @@ checkout's fea_tpu_torch/_build.
 
 The stores (about 7.6 GB at the production count), the checkpoints and
 the datagen trees are written under results/chip_smoke/ and deleted at
-the end. `--only 9,10,11` runs only those phases (any of 1 and 9-16; the
+the end. `--only 9,10,11` runs only those phases (any of 1 to 17; the
 card's name and power limit after them, no result line; phase 15 prints
-phase 10's plates per hour where 10 runs before it).
+phase 10's plates per hour where 10 runs before it, phase 7 phase 5's ms
+per step).
 
 Prints the card, a JSON line of the kernels, and as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -372,6 +391,37 @@ def max_abs_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+class ConvPrecisions:
+    """Records cuDNN's f32 convolution precision at every nn.Conv2d forward
+    from its creation until `stop` (a global module hook, which slows every
+    module call a little: timed runs stop it after their warm-up)."""
+
+    def __init__(self):
+        self.seen = set()
+        self._handle = torch.nn.modules.module.register_module_forward_pre_hook(self._hook)
+
+    def _hook(self, module, args):
+        if isinstance(module, torch.nn.Conv2d):
+            self.seen.add(torch.backends.cudnn.conv.fp32_precision)
+
+    def stop(self):
+        if self._handle is not None:
+            self._handle.remove()
+            self._handle = None
+
+    def check(self, tag, want=None):
+        """Stops, logs the precision the convolutions ran at, and raises
+        unless every one ran at `want` (the policy's default when None)."""
+        from fea_tpu_torch.utils.precision import DEFAULT_CONV
+
+        self.stop()
+        want = want or DEFAULT_CONV
+        if self.seen != {want}:
+            raise AssertionError(f"{tag}: convolutions ran at {sorted(self.seen)}, want {want}")
+        log(f"{tag}: the model ran with cuDNN's f32 convolutions at {want}")
+        return want
+
+
 def phase_kernel(device, earlier):
     """Checks, then {dtype: {name: ms}} at FLASH_SHAPE for the kernel, the
     plain version, the library call and, given `earlier` (another tree's
@@ -429,6 +479,7 @@ def phase_sampler(device):
     from fea_tpu_torch.models import make_diffusion_model
     from fea_tpu_torch.models.diffusion import GaussianDiffusion
     from fea_tpu_torch.models.fdnunet import FDNUNet
+    from fea_tpu_torch.utils.precision import model_precision
 
     generator = torch.Generator(device=device).manual_seed(SEED)
     diffusion = make_diffusion_model(
@@ -445,8 +496,10 @@ def phase_sampler(device):
         rng.normal(size=(SAMPLER_STEPS + 1, SAMPLER_BATCH, IMAGE, IMAGE, 2)).astype(np.float32)
     ).to(device)
 
+    recorder = ConvPrecisions()
     diffusion.sample(condition, 2, noise=noise[:3])  # warm-up: cuDNN picks algorithms
     torch.cuda.synchronize()
+    conv = recorder.check("phase 2")
 
     reset_counts()
     t0 = time.perf_counter()
@@ -462,11 +515,26 @@ def phase_sampler(device):
     if out.shape != (SAMPLER_BATCH, IMAGE, IMAGE, 2) or not torch.isfinite(out).all():
         raise AssertionError(f"sampler output {tuple(out.shape)} is not finite or not the shape")
     log(
-        f"phase 2: sampler batch {SAMPLER_BATCH}, {SAMPLER_STEPS} steps: "
-        f"{wall * 1e3:.2f} ms per call, {wall * 1e3 / SAMPLER_STEPS:.3f} ms per "
+        f"phase 2: sampler batch {SAMPLER_BATCH}, {SAMPLER_STEPS} steps, convolutions at "
+        f"{conv}: {wall * 1e3:.2f} ms per call, {wall * 1e3 / SAMPLER_STEPS:.3f} ms per "
         f"denoising step, {wall * 1e3 / SAMPLER_BATCH:.2f} ms per request; "
         f"flash launches {launches}, GroupNorm+SiLU forward launches {gn_fwd}"
     )
+    with model_precision(conv="ieee"):
+        check_sampler(diffusion, model, condition, noise, out, device)
+    return launches
+
+
+def check_sampler(diffusion, model, condition, noise, shipped, device):
+    """Phase 2's checks, whose tolerances hold strict f32: the caller runs
+    them under model_precision(conv="ieee"). `shipped` is the timed run's
+    output at the policy's default, compared for the record only."""
+    from fea_tpu_torch.models.diffusion import GaussianDiffusion
+    from fea_tpu_torch.models.fdnunet import FDNUNet
+
+    out = diffusion.sample(condition, SAMPLER_STEPS, noise=noise)
+    log(f"phase 2: sampler at ieee: max abs diff from the shipped sampler's samples "
+        f"{max_abs_err(shipped, out):.3e} (no tolerance: for the record)")
 
     # the same weights through plain attention
     with torch.device("meta"):
@@ -485,8 +553,8 @@ def phase_sampler(device):
     wall_plain = time.perf_counter() - t0
     err_sample = max_abs_err(out, out_plain)
     log(
-        f"phase 2: plain-attention sampler {wall_plain * 1e3 / SAMPLER_STEPS:.3f} "
-        f"ms per denoising step; max abs diff of samples {err_sample:.3e} "
+        f"phase 2: plain-attention sampler at ieee {wall_plain * 1e3 / SAMPLER_STEPS:.3f} "
+        f"ms per denoising step; max abs diff of samples at ieee {err_sample:.3e} "
         f"(clipped share {float((out.abs() >= 1).float().mean()):.3f})"
     )
     if err_sample > SAMPLE_ATOL:
@@ -498,7 +566,7 @@ def phase_sampler(device):
         a = model(noise[0], condition, time=t_last)
         b = plain_model(noise[0], condition, time=t_last)
     err_forward = max_abs_err(a, b)
-    log(f"phase 2: one forward, flash vs plain attention: max abs diff {err_forward:.3e}")
+    log(f"phase 2: one forward at ieee, flash vs plain attention: max abs diff {err_forward:.3e}")
     if err_forward > FLASH_VS_PLAIN_ATOL:
         raise AssertionError(f"flash and plain forwards differ by {err_forward}")
 
@@ -510,10 +578,9 @@ def phase_sampler(device):
         on_card = model(small_x, small_c, time=t_small).cpu()
         on_cpu = cpu_model(small_x.cpu(), small_c.cpu(), time=t_small.cpu())
     err_cpu = max_abs_err(on_card, on_cpu)
-    log(f"phase 2: FDNUNet 32 px on the card vs the CPU: max abs diff {err_cpu:.3e}")
+    log(f"phase 2: FDNUNet 32 px on the card at ieee vs the CPU: max abs diff {err_cpu:.3e}")
     if err_cpu > CPU_ATOL:
         raise AssertionError(f"card and CPU differ by {err_cpu}")
-    return launches
 
 
 def predictor_inputs(batch, size, seed):
@@ -530,6 +597,7 @@ def predictor_inputs(batch, size, seed):
 
 def phase_predictor(device):
     from fea_tpu_torch.models import create_models, predict
+    from fea_tpu_torch.utils.precision import model_precision
 
     generator = torch.Generator(device=device).manual_seed(SEED + 1)
     encoder, decoder, _aux = create_models(
@@ -542,8 +610,10 @@ def phase_predictor(device):
     materials, conditions, geometry = (
         torch.from_numpy(a).to(device) for a in predictor_inputs(PREDICT_BATCH, IMAGE, SEED)
     )
+    recorder = ConvPrecisions()
     predict(encoder, decoder, materials, conditions, geometry)  # warm-up
     torch.cuda.synchronize()
+    conv = recorder.check("phase 3")
     reset_counts()
     t0 = time.perf_counter()
     iters = 10
@@ -561,12 +631,13 @@ def phase_predictor(device):
 
     small = [t[:1, :32, :32].contiguous() for t in (materials, conditions, geometry)]
     enc_cpu, dec_cpu = copy.deepcopy(encoder).cpu(), copy.deepcopy(decoder).cpu()
-    on_card = predict(encoder, decoder, *small).cpu()
+    with model_precision(conv="ieee"):  # CPU_ATOL holds strict f32
+        on_card = predict(encoder, decoder, *small).cpu()
     on_cpu = predict(enc_cpu, dec_cpu, *(t.cpu() for t in small))
     err_cpu = max_abs_err(on_card, on_cpu)
     log(
-        f"phase 3: predictor batch {PREDICT_BATCH} at {IMAGE} px: {ms:.3f} ms per "
-        f"batch; 32 px card vs CPU max abs diff {err_cpu:.3e}"
+        f"phase 3: predictor batch {PREDICT_BATCH} at {IMAGE} px, convolutions at {conv}: "
+        f"{ms:.3f} ms per batch; 32 px card at ieee vs CPU max abs diff {err_cpu:.3e}"
     )
     if err_cpu > CPU_ATOL:
         raise AssertionError(f"card and CPU differ by {err_cpu}")
@@ -815,10 +886,13 @@ def trainer_config(image, results, **kw):
 def timed_train(trainer, steps, tag, phase="phase 5"):
     """trainer.train() over `steps` more steps, with the launch counts set
     to 0 before and read after; per-step times from the loop's per-step
-    callback (which reads each step's loss, so each step has ended)."""
+    callback (which reads each step's loss, so each step has ended). The
+    convolutions' precision is recorded over the first (warm-up) step."""
     stamps, losses = [], []
+    recorder = ConvPrecisions()
 
     def on_step(step, loss, *rest):
+        recorder.stop()
         stamps.append(time.perf_counter())
         losses.append(loss)
 
@@ -827,6 +901,7 @@ def timed_train(trainer, steps, tag, phase="phase 5"):
     t0 = time.perf_counter()
     trainer.train(on_step)
     launches = counts()
+    recorder.check(f"{phase}: {tag}")
     if not all(math.isfinite(v) for v in losses) or len(losses) != steps:
         raise AssertionError(f"{tag}: losses {losses}")
     if launches != (0, 18 * steps, 18 * steps):
@@ -853,6 +928,7 @@ def state_tensors(trainer):
 
 def phase_regression_train(device, results):
     from fea_tpu_torch.train import Trainer
+    from fea_tpu_torch.utils.precision import model_precision
 
     data = SyntheticFEADataset(64, IMAGE, SEED)
     samples = SyntheticFEADataset(8, IMAGE, SEED + 1)
@@ -898,7 +974,8 @@ def phase_regression_train(device, results):
         module.load_state_dict(cpu.modules[key].state_dict())
     card.ema_params = {k: [p.detach().clone() for p in v] for k, v in card.params.items()}
     loss_cpu = float(cpu._train_step(cpu._fetch_batch(0)))
-    loss_card = float(card._train_step(card._fetch_batch(0)))
+    with model_precision(conv="ieee"):  # the tolerances hold strict f32
+        loss_card = float(card._train_step(card._fetch_batch(0)))
     grad_err = max(
         rel_err(a.cpu(), b)
         for key in card.opt_states
@@ -906,7 +983,7 @@ def phase_regression_train(device, results):
         if b.abs().max() > 0
     )
     log(
-        f"phase 5: one 32 px step, card vs CPU: loss {loss_card:.7f} vs {loss_cpu:.7f}; "
+        f"phase 5: one 32 px step, card at ieee vs CPU: loss {loss_card:.7f} vs {loss_cpu:.7f}; "
         f"gradient (Adam first moment) max rel err {grad_err:.3e}"
     )
     if abs(loss_card - loss_cpu) > STEP_LOSS_RTOL * abs(loss_cpu) or grad_err > STEP_GRAD_REL:
@@ -923,7 +1000,9 @@ def phase_diffusion_train(device, results):
         num_steps_per_milestone=10**9, input_dim=64, num_stages=4,
         skip_dataset_size_check=True, results_folder=str(results / "diffusion"), seed=SEED,
     ), dataset=data, device=device)
+    recorder = ConvPrecisions()
     trainer.train()  # the warm-up step, and a checkpoint
+    conv = recorder.check("phase 6")
     trainer.config.num_train_steps = 1 + DIFFUSION_STEPS
     reset_counts()
     loss = trainer.train()
@@ -942,7 +1021,8 @@ def phase_diffusion_train(device, results):
         if not torch.isfinite(step_loss):
             raise AssertionError(f"diffusion step loss {float(step_loss)}")
     log(
-        f"phase 6: diffusion batch {DIFFUSION_BATCH} at {IMAGE} px: train() loss {loss:.5f}, "
+        f"phase 6: diffusion batch {DIFFUSION_BATCH} at {IMAGE} px, convolutions at {conv}: "
+        f"train() loss {loss:.5f}, "
         f"launches {launches}; ms per step " + ", ".join(f"{t:.3f}" for t in times)
     )
     return float(np.mean(times))
@@ -1607,6 +1687,7 @@ def phase_full_attention(device, earlier):
     from fea_tpu_torch.models import attention, make_diffusion_model
     from fea_tpu_torch.models.fdnunet import FDNUNet
     from fea_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from fea_tpu_torch.utils.precision import model_precision
 
     kw = dict(input_dim=64, num_stages=4, use_full_attention=True, num_condition_channels=2)
     generator = torch.Generator(device=device).manual_seed(SEED + 12)
@@ -1633,11 +1714,11 @@ def phase_full_attention(device, earlier):
         return x, cond, self_cond, torch.full((FULL_ATTENTION_BATCH,), 500.0, device=device)
 
     x, cond, self_cond, t = inputs(FULL_ATTENTION_SMALL, SEED)
-    with torch.no_grad():
+    with torch.no_grad(), model_precision(conv="ieee"):  # the tolerance holds strict f32
         err_small = max_abs_err(model(x, cond, self_cond, time=t),
                                 plain(x, cond, self_cond, time=t))
-    log(f"phase 12: {FULL_ATTENTION_SMALL} px, batch {FULL_ATTENTION_BATCH}: flash vs plain "
-        f"attention max abs diff {err_small:.3e} (tolerance {FLASH_VS_PLAIN_ATOL})")
+    log(f"phase 12: {FULL_ATTENTION_SMALL} px, batch {FULL_ATTENTION_BATCH}, at ieee: flash vs "
+        f"plain attention max abs diff {err_small:.3e} (tolerance {FLASH_VS_PLAIN_ATOL})")
     if err_small > FLASH_VS_PLAIN_ATOL:
         raise AssertionError(f"flash and plain forwards differ by {err_small}")
     del plain
@@ -1652,9 +1733,12 @@ def phase_full_attention(device, earlier):
         return out
 
     x, cond, self_cond, t = inputs(IMAGE, SEED + 1)
-    forward = torch.no_grad()(lambda: model(x, cond, self_cond, time=t))
+    # the model called as an entry point would call it: at the policy's default
+    forward = model_precision()(torch.no_grad()(lambda: model(x, cond, self_cond, time=t)))
+    recorder = ConvPrecisions()
     forward()  # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
+    conv = recorder.check("phase 12")
     reset_counts()
     with mock.patch.object(attention, "flash_attention", recording):
         out = forward()
@@ -1699,8 +1783,9 @@ def phase_full_attention(device, earlier):
     library_ms = stage0["library"]
     ops = 4 * bh * nq * nk * d
     bound, bound_by = bound_ms(4 * (2 * bh * nq * d + 2 * bh * nk * d), ops, TF32_TENSOR_FLOPS)
-    log(f"phase 12: {IMAGE} px, batch {FULL_ATTENTION_BATCH}: launches (flash, GroupNorm+SiLU "
-        f"forward, backward) {launches}; forward {forward_ms:.3f} ms of device time")
+    log(f"phase 12: {IMAGE} px, batch {FULL_ATTENTION_BATCH}, convolutions at {conv}: launches "
+        f"(flash, GroupNorm+SiLU forward, backward) {launches}; forward {forward_ms:.3f} ms of "
+        f"device time")
     log(f"phase 12: stage-0 flash call {(bh, nq, nk, d)} f32: {stage0_ms:.4f} ms; max abs err "
         f"vs plain on {STAGE0_ROWS} query rows {err_stage0:.3e} (tolerance {F32_TOL}); bound "
         f"{bound:.4f} ms ({bound_by}: {ops / 1e12:.3f} TFLOP at the TF32 tensor-core peak), "
@@ -1750,13 +1835,19 @@ def phase_cli(device, results):
     root.mkdir(parents=True)
     launches = {}
 
-    def run(tag, *argv):
+    def run(tag, *argv, runs_model=False):
+        """One command; `runs_model`: it runs the model, whose convolutions must
+        then have run at the CLI's own setting, the policy's default."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = tree_size(root)
         reset_counts()
+        recorder = ConvPrecisions()
         t0 = time.perf_counter()
-        out = cli.main([str(a) for a in argv])
+        try:
+            out = cli.main([str(a) for a in argv])
+        finally:
+            recorder.stop()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[tag] = counts()
@@ -1764,6 +1855,8 @@ def phase_cli(device, results):
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
             f"{(tree_size(root) - before) / 1e9:.3f} GB written (net); launches (flash, "
             f"GroupNorm+SiLU forward, backward) {launches[tag]}")
+        if runs_model:
+            recorder.check(f"phase 13: {tag}")
         return out
 
     def want_launches(tag, fwd, bwd):
@@ -1806,7 +1899,7 @@ def phase_cli(device, results):
         "--num_steps", CLI_TRAIN_STEPS, "--num_steps_per_milestone", CLI_TRAIN_STEPS,
         "--num_steps_per_condition", CLI_STEPS, "--num_steps_per_sample_condition", CLI_STEPS,
         "--conditions_per_plate", CLI_CONDITIONS, "--num_sample_conditions_per_plate",
-        CLI_CONDITIONS, "--no_progress_bar", "--results_dir", res, *model)
+        CLI_CONDITIONS, "--no_progress_bar", "--results_dir", res, *model, runs_model=True)
     # 18 + 18 per step, and 18 forward per batch of the milestone's samples
     want_launches("train", 18 * (CLI_TRAIN_STEPS + sample_batches), 18 * CLI_TRAIN_STEPS)
     (train_log,) = res.glob(f"train-e{CLI_TRAIN_STEPS}-b{TRAIN_BATCH}-*.log")
@@ -1828,7 +1921,7 @@ def phase_cli(device, results):
                 "--conditions_per_plate", CLI_CONDITIONS, "--steps_per_condition", CLI_STEPS)
     scores = {}
     for tag, flags in (("raw", ()), ("EMA", ("--use_ema",))):
-        run(f"sample ({tag})", *sample, *flags)
+        run(f"sample ({tag})", *sample, *flags, runs_model=True)
         want_launches(f"sample ({tag})", 18 * sample_batches, 0)
         written = len(list((res / "final").rglob("sample_*.png")))
         if written != 2 * sample_set:
@@ -1844,7 +1937,7 @@ def phase_cli(device, results):
 
     out = run("app gusset --checkpoint --use_ema", "app", "gusset", "--checkpoint",
               res / "model-final", "--use_ema", "--image_size", APP_IMAGE, "--output_dir",
-              root / "app")
+              root / "app", runs_model=True)
     want_launches("app gusset --checkpoint --use_ema", 18, 0)
     log(f"phase 13: app gusset: {out}")
     if not (out["converged"] and out["raster_roundtrip_mae"] < 1e-2
@@ -1868,7 +1961,7 @@ def phase_cli(device, results):
         "--batch_size", DIFFUSION_BATCH, "--num_steps", CLI_DIFFUSION_STEPS,
         "--num_steps_per_milestone", CLI_DIFFUSION_STEPS, "--conditions_per_plate",
         CLI_CONDITIONS, "--num_steps_per_condition", CLI_STEPS, "--results_dir",
-        root / "results_diffusion")
+        root / "results_diffusion", runs_model=True)
     want_launches("train-diffusion", 9 * CLI_DIFFUSION_STEPS, 9 * CLI_DIFFUSION_STEPS)
     state = torch.load(root / "results_diffusion" / "model-final" / "state.pt",
                        map_location="cpu", mmap=True, weights_only=True)
@@ -1923,35 +2016,42 @@ def timed_collective(device, fn, reps):
 
 def dp_regression_rank(results, reference, steps):
     """One rank of phase 14b / 14f: the full-width regression Trainer at
-    the global batch TRAIN_BATCH (its rows of it) through train(), a sample
-    batch through sample_and_save, and the collectives timed at the step's
-    sizes. Returns what the parent checks."""
+    the global batch TRAIN_BATCH (its rows of it): the first step at ieee,
+    held against the one-rank reference (whose shapes differ), then train()
+    over the rest at the policy's default; a sample batch through
+    sample_and_save, and the collectives timed at the step's sizes. Returns
+    what the parent checks."""
     from unittest import mock
 
     from fea_tpu_torch.parallel import distributed, mesh
     from fea_tpu_torch.train import Trainer
     from fea_tpu_torch.train.trainer import MODULES
+    from fea_tpu_torch.utils.precision import model_precision
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     device = distributed.local_device()
     data, samples = SyntheticFEADataset(64, IMAGE, SEED), SyntheticFEADataset(8, IMAGE, SEED + 1)
     trainer = Trainer(trainer_config(IMAGE, Path(results)), dataset=data, sample_dataset=samples,
                       device=device)
     trainer.config.num_train_steps = steps
     ref = torch.load(reference, map_location=device, weights_only=True)
-    stamps, losses, first = [], [], {}
+    stamps, losses = [], []
 
     def on_step(step, loss, *rest):
+        recorder.stop()
         stamps.append(time.perf_counter())
         losses.append(loss)
-        if step == 1:  # the reduced gradients, read as Adam's first moment
-            first.update({k: module_rel(trainer.opt_states[k].mu, ref["mu"][k]) for k in MODULES})
 
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
     t0 = time.perf_counter()
     with mock.patch.object(torch, "save", wraps=torch.save) as save:
+        with model_precision(conv="ieee"):
+            losses.append(float(trainer._train_step(trainer._fetch_batch(0))))
+        stamps.append(time.perf_counter())
+        # the reduced gradients, read as Adam's first moment
+        first = {k: module_rel(trainer.opt_states[k].mu, ref["mu"][k]) for k in MODULES}
+        recorder = ConvPrecisions()
         trainer.train(on_step)
     launches, saves = counts(), save.call_count
     peak = torch.cuda.max_memory_allocated(device) / 1e9
@@ -1962,6 +2062,7 @@ def dp_regression_rank(results, reference, steps):
     rows = torch.zeros((TRAIN_BATCH // distributed.process_count(), IMAGE, IMAGE, 2), device=device)
     return dict(
         rank=distributed.process_index(), device=str(device), losses=losses,
+        conv=sorted(recorder.seen),
         ms=list(np.diff([t0] + stamps) * 1e3), grad_rel=first, launches=launches,
         sample_launches=sample_launches, saves=saves, files=None if files is None else len(files),
         sample_loss=sample_loss, peak_gb=peak,
@@ -1975,33 +2076,40 @@ def dp_regression_rank(results, reference, steps):
 
 def dp_diffusion_rank(results, reference, steps):
     """One rank of phase 14c: the full-width DiffusionTrainer at the global
-    batch DIFFUSION_BATCH, `steps` steps, then its checkpoint."""
+    batch DIFFUSION_BATCH, `steps` steps (the first at ieee, held against
+    the one-rank reference; the rest at the policy's default), then its
+    checkpoint."""
     from unittest import mock
 
     from fea_tpu_torch.parallel import distributed
+    from fea_tpu_torch.utils.precision import model_precision
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     device = distributed.local_device()
     trainer = dp_diffusion_trainer(results, device)
     ref = torch.load(reference, map_location=device, weights_only=True)
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
-    losses, ms, grad_rel = [], [], None
+    losses, ms, grad_rel, conv = [], [], None, None
     for i in range(steps):
         x0, cond = trainer._fetch(i * DIFFUSION_BATCH)
         torch.cuda.synchronize(device)
+        recorder = ConvPrecisions()
         t0 = time.perf_counter()
-        losses.append(float(trainer._train_step(x0, cond)))
+        with model_precision(conv="ieee" if i == 0 else None):
+            losses.append(float(trainer._train_step(x0, cond)))
         ms.append((time.perf_counter() - t0) * 1e3)
+        recorder.stop()
         if i == 0:
             grad_rel = module_rel(trainer.opt_state.mu, ref["mu"])
+        elif conv is None:
+            conv = sorted(recorder.seen)
     launches = counts()
     with mock.patch.object(torch, "save", wraps=torch.save) as save:
         trainer.save_checkpoint("final")
     opt = trainer.opt_state
     return dict(rank=distributed.process_index(), losses=losses, ms=ms, grad_rel=grad_rel,
-                launches=launches, saves=save.call_count,
+                conv=conv, launches=launches, saves=save.call_count,
                 peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
                 digest=state_digest([*trainer.params, *trainer.ema_params, *opt.mu, *opt.nu]))
 
@@ -2018,11 +2126,16 @@ def dp_diffusion_trainer(results, device):
 
 def check_ranks(tag, outs, ref_loss, want_launches, grad_rel):
     """Both ranks' state equal bit for bit, the first loss and the reduced
-    gradients within STEP_LOSS_RTOL / STEP_GRAD_REL of the one-rank step,
+    gradients (both at ieee) within STEP_LOSS_RTOL / STEP_GRAD_REL of the
+    one-rank step, the later steps' convolutions at the policy's default,
     the kernels launched in every rank, one checkpoint written by rank 0."""
+    from fea_tpu_torch.utils.precision import DEFAULT_CONV
+
     if len({o["digest"] for o in outs}) != 1:
         raise AssertionError(f"{tag}: the ranks' states differ")
     for o in outs:
+        if o["conv"] != [DEFAULT_CONV]:
+            raise AssertionError(f"{tag}: rank {o['rank']} convolutions at {o['conv']}")
         if abs(o["losses"][0] - ref_loss) > STEP_LOSS_RTOL * abs(ref_loss):
             raise AssertionError(f"{tag}: rank {o['rank']} loss {o['losses'][0]} against {ref_loss}")
         if grad_rel(o) > STEP_GRAD_REL:
@@ -2056,7 +2169,8 @@ def regression_ranks(tag, results, reference, ref_loss, devices, backend):
             f"{', '.join(f'{v:.6f}' for v in o['losses'])} (one rank: first {ref_loss:.6f}); "
             f"reduced gradients {max(o['grad_rel'].values()):.3e} of each module's largest off "
             f"the one-rank step; ms per step {', '.join(f'{t:.3f}' for t in o['ms'])} (the first "
-            f"includes the warm-up); launches {o['launches']}, sample batch {o['sample_launches']}; "
+            f"at ieee with the warm-up, the rest at {o['conv'][0]}); launches {o['launches']}, "
+            f"sample batch {o['sample_launches']}; "
             f"peak {o['peak_gb']:.2f} GB; all-reduce of {o['bucket_bytes'] / 1e9:.3f} GB "
             f"{', '.join(f'{t:.3f}' for t in o['all_reduce_ms'])} ms; gather of "
             f"{o['gather_bytes'] / 1e6:.3f} MB {', '.join(f'{t:.3f}' for t in o['gather_ms'])} ms")
@@ -2138,6 +2252,7 @@ def phase_data_parallel(device, results):
     from fea_tpu_torch.parallel import distributed, launch, scaling
     from fea_tpu_torch.train import Trainer
     from fea_tpu_torch.train.trainer import MODULES
+    from fea_tpu_torch.utils.precision import model_precision
 
     card = nvidia_smi()
     log(f"phase 14: on {card}")
@@ -2147,7 +2262,9 @@ def phase_data_parallel(device, results):
     # (a) the regression Trainer's steps under an NCCL group of one rank
     # against the same steps with no group, cuDNN's deterministic algorithms
     # so that two runs can be equal bit for bit; the grouped run then saves
-    # (its barriers under NCCL)
+    # (its barriers under NCCL). The first step runs at ieee: it is the
+    # reference that (b) holds its ranks to, at other shapes; the rest at
+    # the policy's default
     data = SyntheticFEADataset(64, IMAGE, SEED)
     samples = SyntheticFEADataset(8, IMAGE, SEED + 1)
     deterministic = torch.backends.cudnn.deterministic
@@ -2162,9 +2279,14 @@ def phase_data_parallel(device, results):
         for i in range(DP_STEPS):
             batch = trainer._fetch_batch(i * TRAIN_BATCH)
             torch.cuda.synchronize()
+            recorder = ConvPrecisions()
             t0 = time.perf_counter()
-            losses.append(float(trainer._train_step(batch)))
+            with model_precision(conv="ieee" if i == 0 else None):
+                losses.append(float(trainer._train_step(batch)))
             ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 1:
+                conv = recorder.check(f"phase 14a: {tag}: step 1")
+            recorder.stop()
             if not reference:  # the one-rank step 14b is held against
                 reference.update(loss=losses[0], mu={
                     k: [m.to("cpu", copy=True) for m in trainer.opt_states[k].mu] for k in MODULES})
@@ -2175,7 +2297,8 @@ def phase_data_parallel(device, results):
             if not (root / tag / "model-final" / "state.pt").is_file():
                 raise AssertionError(f"14a {tag}: no checkpoint")
         log(f"phase 14a: {tag}: losses {', '.join(f'{v:.5f}' for v in losses)}; ms per step "
-            f"{', '.join(f'{t:.3f}' for t in ms)} (the first includes the warm-up)")
+            f"{', '.join(f'{t:.3f}' for t in ms)} (the first at ieee with the warm-up, the rest "
+            f"at {conv})")
         state = [t.cpu() for t in trainer._state_tensors()]
         del trainer
         torch.cuda.empty_cache()
@@ -2210,7 +2333,8 @@ def phase_data_parallel(device, results):
     # (c) the DiffusionTrainer: two gloo ranks against one
     one = dp_diffusion_trainer(root / "c_one", device)
     x0, cond = one._fetch(0)
-    loss = float(one._train_step(x0, cond))
+    with model_precision(conv="ieee"):  # the ranks' first step is held to it at other shapes
+        loss = float(one._train_step(x0, cond))
     torch.save({"mu": [m.to("cpu", copy=True) for m in one.opt_state.mu]}, root / "diffusion_reference.pt")
     del one
     torch.cuda.empty_cache()
@@ -2223,8 +2347,9 @@ def phase_data_parallel(device, results):
     for o in c_outs:
         log(f"phase 14c: rank {o['rank']}: losses {', '.join(f'{v:.6f}' for v in o['losses'])} "
             f"(one rank: first {loss:.6f}); reduced gradients {o['grad_rel']:.3e} of the largest "
-            f"off the one-rank step; ms per step {', '.join(f'{t:.3f}' for t in o['ms'])}; "
-            f"launches {o['launches']}; peak {o['peak_gb']:.2f} GB")
+            f"off the one-rank step; ms per step {', '.join(f'{t:.3f}' for t in o['ms'])} (the "
+            f"first at ieee, the rest at {o['conv'][0]}); launches {o['launches']}; peak "
+            f"{o['peak_gb']:.2f} GB")
     log(f"phase 14c: 2 ranks in {time.perf_counter() - t0:.1f} s, states equal bit for bit")
 
     # (d) datagen at bench.py's config on 2 shards of this card against 1.
@@ -3036,12 +3161,145 @@ def phase_cg_loop(device, results, earlier=None):
     return entries, ms_body
 
 
+# phase 17: the shipped convolution precision against strict f32
+PRECISION_FORWARD_BATCHES = (SAMPLER_BATCH, PREDICT_BATCH)
+PRECISION_FORWARD_ITERS = 3
+PRECISION_STEP_ITERS = 2
+
+
+def precision_turns(tag, outputs, fns, iters, diff):
+    """Logs the device ms per call of each route (in turns) and each one's
+    difference from "ieee" by `diff`; returns {route: diff}."""
+    ms = in_turns(fns, iters)
+    diffs = {name: diff(out, outputs["ieee"]) for name, out in outputs.items() if name != "ieee"}
+    log(f"phase 17: {tag}: ms per call " + ", ".join(f"{n} {t:.3f}" for n, t in ms.items())
+        + f" (ieee / tf32 {ms['ieee'] / ms['tf32']:.2f}x); from ieee: "
+        + ", ".join(f"{n} {d}" for n, d in diffs.items()))
+    return diffs
+
+
+def one_bf16_pass(model):
+    """A copy of `model` whose convolutions take one bf16 pass: weights and
+    inputs rounded to bf16, the sums in f32 (what XLA's default precision
+    runs on a TPU, fea_tpu's setting); everything else unchanged."""
+    model = copy.deepcopy(model)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.weight.data = m.weight.data.bfloat16().float()
+            m.register_forward_pre_hook(lambda _, args: (args[0].bfloat16().float(), *args[1:]))
+    return model
+
+
+def phase_precision(device, results):
+    """Phase 17: the model at the shipped convolution precision ("tf32")
+    against strict f32 ("ieee"), with a bf16 route as the yardstick, a
+    setting one of the packages ships. Device ms per call in turns and each
+    route's difference from "ieee": the sampler's FDNUNet forward at 256
+    px, batches 2 and 4 (bf16: its convolutions in one bf16 pass, fea_tpu's
+    setting on a TPU; the FDNUNet has no cast route in either package, and
+    under torch.autocast its memory keys stay f32 beside bf16 queries); the
+    regression predict at batch 4 (bf16: the Trainer's
+    compute_dtype="bfloat16" cast of the weights and image inputs);
+    one f32 regression train step at batch 16 from the same weights (the
+    loss, and the largest relative difference of a module's gradients, read
+    as Adam's first moment; bf16: a Trainer with compute_dtype="bfloat16").
+    Raises where "tf32" differs from "ieee" by more than bf16 does, or not
+    at all (the flag did not reach cuDNN)."""
+    from fea_tpu_torch.models import create_models, make_diffusion_model, predict
+    from fea_tpu_torch.train import Trainer
+    from fea_tpu_torch.train.trainer import MODULES
+    from fea_tpu_torch.utils.precision import model_precision
+
+    def at(conv, fn, *args):
+        return model_precision(conv=conv)(functools.partial(fn, *args))
+
+    checks = []
+    model = make_diffusion_model(
+        image_size=IMAGE, input_dim=64, num_stages=4, timesteps=1000, use_flash_attention=True,
+        device=device, generator=torch.Generator(device=device).manual_seed(SEED),
+    ).model.eval()
+    forward = torch.no_grad()(model)
+    low_forward = torch.no_grad()(one_bf16_pass(model))
+    for batch in PRECISION_FORWARD_BATCHES:
+        rng = np.random.default_rng(SEED + batch)
+        x, cond = (torch.from_numpy(rng.normal(size=(batch, IMAGE, IMAGE, c)).astype(np.float32))
+                   .to(device) for c in (2, 5))
+        t = torch.from_numpy(rng.integers(0, 1000, batch).astype(np.float32)).to(device)
+
+        def call(route, x=x, cond=cond, t=t):
+            with model_precision(conv="tf32" if route == "tf32" else "ieee"):
+                return (low_forward if route == "bf16" else forward)(x, cond, time=t)
+
+        fns = {route: functools.partial(call, route) for route in ("ieee", "tf32", "bf16")}
+        outputs = {n: fn() for n, fn in fns.items()}
+        checks.append((f"FDNUNet forward, batch {batch}", precision_turns(
+            f"FDNUNet forward at {IMAGE} px, batch {batch}", outputs, fns,
+            PRECISION_FORWARD_ITERS, max_abs_err)))
+        del outputs, x, cond
+    del model, forward, low_forward
+    torch.cuda.empty_cache()
+
+    encoder, decoder, _ = create_models(
+        input_dim=64, image_height=IMAGE, image_width=IMAGE, num_channels=2,
+        num_auxiliary_condition_channels=3, num_stages=4, device=device,
+        generator=torch.Generator(device=device).manual_seed(SEED + 1))
+    inputs = [torch.from_numpy(a).to(device) for a in predictor_inputs(PREDICT_BATCH, IMAGE, SEED)]
+    low = [copy.deepcopy(m).to(torch.bfloat16).eval() for m in (encoder, decoder)]
+    low_inputs = (inputs[0].bfloat16(), inputs[1].bfloat16(), inputs[2])
+    fns = {"ieee": at("ieee", predict, encoder.eval(), decoder.eval(), *inputs),
+           "tf32": at("tf32", predict, encoder, decoder, *inputs),
+           "bf16": at("ieee", predict, *low, *low_inputs)}
+    outputs = {n: fn() for n, fn in fns.items()}
+    checks.append((f"predict, batch {PREDICT_BATCH}", precision_turns(
+        f"predict at {IMAGE} px, batch {PREDICT_BATCH}", outputs, fns, PRECISION_FORWARD_ITERS,
+        max_abs_err)))
+    del encoder, decoder, low, outputs
+    torch.cuda.empty_cache()
+
+    data = SyntheticFEADataset(TRAIN_BATCH, IMAGE, SEED)
+    trainers = {}
+    for name, compute in (("ieee", None), ("tf32", None), ("bf16", "bfloat16")):
+        trainers[name] = Trainer(
+            trainer_config(IMAGE, results / "precision" / name, compute_dtype=compute),
+            dataset=data, sample_dataset=data, device=device)
+        if name != "ieee":  # the same weights
+            for key, module in trainers[name].modules.items():
+                module.load_state_dict(trainers["ieee"].modules[key].state_dict())
+    batches = {name: tr._fetch_batch(0) for name, tr in trainers.items()}
+    steps = {name: at("tf32" if name == "tf32" else "ieee", tr._train_step, batches[name])
+             for name, tr in trainers.items()}
+    outputs = {}
+    for name, tr in trainers.items():
+        loss = float(steps[name]())
+        outputs[name] = (loss, {k: [m.clone() for m in tr.opt_states[k].mu] for k in MODULES})
+
+    def step_diff(got, want):
+        return (abs(got[0] - want[0]),
+                max(module_rel(got[1][k], want[1][k]) for k in MODULES if want[1][k]))
+
+    step_diffs = precision_turns(
+        f"one f32 regression train step at {IMAGE} px, batch {TRAIN_BATCH} (loss, largest "
+        f"relative gradient difference of a module)", outputs, steps, PRECISION_STEP_ITERS,
+        step_diff)
+    checks.append(("train step loss", {n: d[0] for n, d in step_diffs.items()}))
+    checks.append(("train step gradients", {n: d[1] for n, d in step_diffs.items()}))
+    del trainers, batches, steps, outputs
+    torch.cuda.empty_cache()
+
+    for tag, diffs in checks:
+        if not 0 < diffs["tf32"] <= diffs["bf16"]:
+            raise AssertionError(f"phase 17: {tag}: tf32 differs from ieee by {diffs['tf32']}, "
+                                 f"the bf16 route by {diffs['bf16']}")
+    log("phase 17: the shipped precision (tf32) differs from strict f32 (ieee) by less than "
+        "the bf16 route does, in every case, and by more than 0")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", metavar="TREE",
                         help="also time the kernels of this checkout, as `earlier`")
     parser.add_argument("--only", metavar="PHASES",
-                        help="run only these of the phases 1 and 9-16 (comma-separated); "
+                        help="run only these phases (comma-separated numbers, 1 to 17); "
                              "such a partial run prints no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -3052,11 +3310,14 @@ def main():
     from fea_tpu_torch.ops.flash_attention import build as build_flash
     from fea_tpu_torch.ops.fused_norm import build as build_group_norm
     from fea_tpu_torch.utils.device import cuda_device
+    from fea_tpu_torch.utils.precision import DEFAULT_CONV
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default; the FEM's requirement
     device = cuda_device()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    log(f"set-up: the model's f32 convolutions at the policy's {DEFAULT_CONV} "
+        f"(fea_tpu_torch/utils/precision.py) unless a check asks for ieee; matmuls with "
+        f"torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
 
     builds = [build_flash, build_group_norm, build_cg, build_band]
     earlier = None
@@ -3078,11 +3339,27 @@ def main():
     shutil.rmtree(results, ignore_errors=True)
     if args.only:
         chunk_ms_body = plates_per_hour = float("nan")
+        synthetic_ms = {"f32": float("nan"), "bf16": float("nan")}
         try:
             for n in sorted(int(v) for v in args.only.split(",")):
                 t0 = time.perf_counter()
                 if n == 1:
                     phase_kernel(device, earlier)
+                elif n == 2:
+                    phase_sampler(device)
+                elif n == 3:
+                    phase_predictor(device)
+                elif n == 4:
+                    phase_group_norm(device, earlier)
+                elif n == 5:
+                    f32_ms, bf16_ms, _ = phase_regression_train(device, results)
+                    synthetic_ms = {"f32": f32_ms, "bf16": bf16_ms}
+                elif n == 6:
+                    phase_diffusion_train(device, results)
+                elif n == 7:
+                    phase_store_train(device, results, synthetic_ms)
+                elif n == 8:
+                    phase_fem(device)
                 elif n == 9:
                     chunk_ms_body = phase_chunk(device)
                 elif n == 10:
@@ -3099,8 +3376,10 @@ def main():
                     phase_variants(device, results, plates_per_hour)
                 elif n == 16:
                     phase_cg_loop(device, results, earlier)
+                elif n == 17:
+                    phase_precision(device, results)
                 else:
-                    raise SystemExit(f"--only takes the phases 1 and 9 to 16, not {n}")
+                    raise SystemExit(f"--only takes the phases 1 to 17, not {n}")
                 log(f"phase {n} done in {time.perf_counter() - t0:.1f} s")
             log(nvidia_smi())
         finally:
@@ -3159,6 +3438,9 @@ def main():
         t0 = time.perf_counter()
         cg_entries, _ = phase_cg_loop(device, results, earlier)
         log(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_precision(device, results)
+        log(f"phase 17 done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)
 

@@ -36,6 +36,7 @@ from ..raster import (
     scalar_range,
 )
 from ..utils.device import resolve_device
+from ..utils.precision import model_precision
 from .specs import APPLICATIONS, ApplicationSpec
 
 
@@ -214,6 +215,7 @@ def run_application(
     return out
 
 
+@model_precision()
 def predict_with_surrogate(
     spec, mesh, problem, output_dir, image_size, checkpoint, decode_scale,
     use_ema: bool = False, device=None,

@@ -20,6 +20,9 @@ It differs from fea_tpu's CLI in these ways:
     `--device` picks the group's device;
   * `generate --num_devices` above 1 without `--batched` raises, where
     fea_tpu ignores it: the sequential path runs on one device.
+The commands that run the model (train, train-diffusion, sample, and app
+with a checkpoint) print one line naming the precision of the model's f32
+convolutions (utils/precision.py), which their entry points run under.
 """
 
 import argparse
@@ -30,6 +33,12 @@ import torch
 
 from .parallel.distributed import ensure_initialized, local_device, shutdown
 from .utils.device import resolve_device
+from .utils.precision import conv_precision
+
+
+def _log_precision(command):
+    print(f"{command}: the model's f32 convolutions run at {conv_precision()} "
+          "(fea_tpu_torch/utils/precision.py)", flush=True)
 
 
 def _add_generate(sub):
@@ -226,6 +235,7 @@ def _cmd_train(args, device):
         input_dim=args.input_dim,
         num_stages=args.num_stages,
     )
+    _log_precision("train")
     trainer = Trainer(config, device=device)
     if args.checkpoint is not None:
         trainer.load_checkpoint(args.checkpoint)
@@ -345,6 +355,7 @@ def _cmd_train_diffusion(args, device):
         results_folder=args.results_dir,
         skip_dataset_size_check=args.skip_dataset_size_check,
     )
+    _log_precision("train-diffusion")
     DiffusionTrainer(config, device=device).train()
 
 
@@ -387,6 +398,7 @@ def _cmd_sample(args, device):
         input_dim=args.input_dim,
         num_stages=args.num_stages,
     )
+    _log_precision("sample")
     trainer = Trainer(config, device=device)
     trainer.load_checkpoint(args.milestone)
     trainer.sample_and_save(
@@ -450,6 +462,8 @@ def _add_app(sub):
 def _cmd_app(args, device):
     from .apps.runner import run_application
 
+    if args.checkpoint is not None:
+        _log_precision("app")
     out = run_application(
         args.name,
         output_dir=args.output_dir,

@@ -11,6 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.precision import model_precision
 from .fdnunet import FDNUNet
 from .initializers import materialize
 
@@ -121,6 +122,7 @@ class GaussianDiffusion:
         return torch.mean((pred - target) ** 2)
 
     @torch.no_grad()
+    @model_precision()
     def sample(
         self,
         condition: torch.Tensor,

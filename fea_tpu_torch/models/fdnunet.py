@@ -12,6 +12,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..utils.precision import model_precision
 from .attention import FullAttention, LinearAttention
 from .blocks import (
     AuxiliaryRangePredictor,
@@ -253,6 +254,7 @@ def create_models(*args, device, generator: torch.Generator, **kwargs):
 
 
 @torch.no_grad()
+@model_precision()
 def predict(encoder, decoder, materials, conditions, geometry):
     """The regression surrogate's prediction: encoder -> decoder, then the
     geometry remask of the signed output (fea_tpu/apps/runner.py:320-331).

@@ -28,6 +28,7 @@ from ..data.dataset import EpochSampler, FEADataset, collate
 from ..models.diffusion import GaussianDiffusion, make_diffusion_model
 from ..parallel.distributed import is_main_process, sync_processes
 from ..parallel.mesh import all_reduce_mean, make_mesh, replicate
+from ..utils.precision import model_precision
 from .ema import ema_update
 from .optim import AdamState, adam_init, adam_update, clip_by_global_norm
 
@@ -112,6 +113,7 @@ class DiffusionTrainer:
         rows = self.dp.rows(batch)
         return t[rows], noise[rows]
 
+    @model_precision()
     def _train_step(self, x0, condition, t=None, noise=None) -> torch.Tensor:
         """One clipped Adam step and EMA update on this rank's rows; t and
         the noise are drawn from the trainer's generator unless both are
@@ -157,6 +159,7 @@ class DiffusionTrainer:
         self.save_checkpoint("final")
         return None if loss is None else float(loss)
 
+    @model_precision()
     def sample(self, condition, num_steps: Optional[int] = None, use_ema: bool = True,
                seed: int = 0) -> torch.Tensor:
         """DDPM samples for NHWC condition (B, H, W, 5), through the EMA

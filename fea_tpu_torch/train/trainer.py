@@ -55,6 +55,7 @@ from ..data.store import StoredFEADataset
 from ..models.fdnunet import create_models
 from ..parallel.distributed import is_main_process, sync_processes
 from ..parallel.mesh import all_reduce_mean, gather_rows, make_mesh, replicate
+from ..utils.precision import model_precision
 from .ema import ema_update
 from .optim import AdamState, adam_init, adam_update, clip_by_global_norm, global_norm, select_
 
@@ -108,7 +109,9 @@ class TrainerConfig:
     skip_dataset_size_check: bool = False
     inference_only: bool = False  # sampling: no effective-batch floor
     # 'bfloat16': params and image inputs are cast to bf16 at apply time
-    # (grads come back f32), outputs cast to f32; None = f32 throughout
+    # (grads come back f32), outputs cast to f32; None = f32 tensors
+    # throughout, with the convolutions at the port's model precision on the
+    # card (utils/precision.py: TF32 unless a caller asks for "ieee")
     compute_dtype: Optional[str] = None
     # ship the +-1 mask channels as int8 and, under bf16 compute, forces
     # and materials as bf16: bit-exact, fewer bytes to the device
@@ -367,6 +370,7 @@ class Trainer:
         return t.to(self.device)
 
     # ---------------------------------------------------------- train step
+    @model_precision()
     def _train_step(self, batch) -> torch.Tensor:
         """One optimizer step on `batch` (leaves (accum, micro, ...) on the
         device: packed tensors, or with the device-resident store the index
@@ -575,6 +579,7 @@ class Trainer:
         sign = (sign_out < 0.5).astype(np.int32) * 2 - 1
         return sign * (np.exp(log_out) - 1.0)
 
+    @model_precision()
     def sample_and_save(
         self,
         milestone=None,

@@ -3,15 +3,18 @@
     python3 tools/profile_fdnunet.py [--table PATH]
 
 The sampler's model (input_dim 64, 4 stages, 256 px, batch 2, time
-embedding, flash attention, random seeded weights), f32 with TF32 off as
-chip_smoke.py runs it. Two parts:
+embedding, flash attention, random seeded weights), f32, at the precision
+the port ships: its convolutions at the policy's default
+(fea_tpu_torch/utils/precision.py: TF32), its matmuls strict f32. Two
+parts:
 
 1. Forward time under convolution settings, each 5 forwards timed after 2
    warm-ups, all in one process and in two passes, the second in reverse
-   order: NHWC inputs (the port's default, channels_last convolutions),
-   NCHW-contiguous inputs, cudnn.benchmark on, cuDNN off (PyTorch's own
-   convolutions), and TF32 convolutions (which the port does not use).
-   Each variant's output is compared with the default's.
+   order. At the shipped precision: NHWC inputs (the port's default),
+   NCHW-contiguous inputs, cudnn.benchmark on, and cuDNN off (PyTorch's
+   own convolutions); and strict f32 convolutions ("ieee"). The precision
+   is switched only through `model_precision`. Each variant's output is
+   compared with the default's.
 2. torch.profiler over one forward with the default settings: device time
    and launches per kernel name, the top rows printed, the whole table
    written to PATH when given.
@@ -38,37 +41,39 @@ def log(*args):
 
 
 def settings(name):
-    """(cudnn.enabled, cudnn.benchmark, cudnn.allow_tf32, nchw input)"""
+    """(cudnn.enabled, cudnn.benchmark, convolution precision (None: the
+    policy's default), nchw input)"""
     return {
-        "nhwc": (True, False, False, False),
-        "nchw": (True, False, False, True),
-        "cudnn_benchmark": (True, True, False, False),
-        "cudnn_off": (False, False, False, False),
-        "tf32_conv": (True, False, True, False),
+        "nhwc": (True, False, None, False),
+        "nchw": (True, False, None, True),
+        "cudnn_benchmark": (True, True, None, False),
+        "cudnn_off": (False, False, None, False),
+        "ieee": (True, False, "ieee", False),
     }[name]
 
 
 def forward_ms(model, x, cond, t, name):
-    enabled, benchmark, tf32, nchw = settings(name)
-    torch.backends.cudnn.enabled = enabled
-    torch.backends.cudnn.benchmark = benchmark
-    torch.backends.cudnn.allow_tf32 = tf32
+    from fea_tpu_torch.utils.precision import model_precision
+
+    enabled, benchmark, conv, nchw = settings(name)
     if nchw:  # the same values, NCHW-contiguous underneath the NHWC view
         x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
         cond = cond.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    with torch.no_grad():
-        for _ in range(WARMUP):
-            out = model(x, cond, time=t)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TIMED):
-            out = model(x, cond, time=t)
-        torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / TIMED
-    torch.backends.cudnn.enabled = True
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = False
-    return ms, out
+    cudnn = torch.backends.cudnn
+    saved = cudnn.enabled, cudnn.benchmark
+    cudnn.enabled, cudnn.benchmark = enabled, benchmark
+    try:
+        with torch.no_grad(), model_precision(conv=conv):
+            for _ in range(WARMUP):
+                out = model(x, cond, time=t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TIMED):
+                out = model(x, cond, time=t)
+            torch.cuda.synchronize()
+    finally:
+        cudnn.enabled, cudnn.benchmark = saved
+    return (time.perf_counter() - t0) * 1e3 / TIMED, out
 
 
 def main():
@@ -80,9 +85,9 @@ def main():
         return 1
     from fea_tpu_torch.models import make_diffusion_model
     from fea_tpu_torch.ops.flash_attention import build, flash_attention
+    from fea_tpu_torch.utils.precision import DEFAULT_CONV, model_precision
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default
     device = torch.device("cuda")
     build()
     model = make_diffusion_model(
@@ -97,7 +102,8 @@ def main():
     )
     t = torch.full((BATCH,), 999.0, device=device)
 
-    names = ["nhwc", "nchw", "cudnn_benchmark", "cudnn_off", "tf32_conv"]
+    names = ["nhwc", "nchw", "cudnn_benchmark", "cudnn_off", "ieee"]
+    log(f"convolutions at {DEFAULT_CONV} (the policy's default) except in ieee")
     times = {name: [] for name in names}
     outputs = {}
     for order in (names, names[::-1]):
@@ -114,7 +120,7 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
+    with torch.no_grad(), model_precision():
         model(x, cond, time=t)
         torch.cuda.synchronize()
         launches = flash_attention.launches
@@ -135,8 +141,8 @@ def main():
         return 1
     device_ms = sum(e.device_time_total for e in kernels) / 1e3
     log(
-        f"profiled forward: {sum(e.count for e in kernels)} kernel launches, "
-        f"{device_ms:.3f} ms of device time, {wall_ms:.3f} ms wall under the "
+        f"profiled forward, convolutions at {DEFAULT_CONV}: {sum(e.count for e in kernels)} "
+        f"kernel launches, {device_ms:.3f} ms of device time, {wall_ms:.3f} ms wall under the "
         f"profiler; flash launches {flash_attention.launches - launches}"
     )
     for e in kernels[:12]:
