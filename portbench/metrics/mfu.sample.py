@@ -1,0 +1,19 @@
+"""mfu.sample
+
+The denoiser's share of the card's dense TF32 peak: the operations of
+the traced window's forwards (portbench/counts/flops.py, counted on the
+reference) over the window, over 495 TFLOP/s.
+"""
+
+from portbench.counts import kernels
+
+LAYER = "Model step"
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = "denoise_step_ms"
+
+
+def read(outcome):
+    if outcome.trace is None or outcome.trace.window_s <= 0:
+        return None
+    return 100.0 * outcome.facts["flops"] / outcome.trace.window_s / kernels.TF32_FLOPS
