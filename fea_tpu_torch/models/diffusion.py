@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..utils.precision import model_precision
+from ..utils.profiling import request_span, span
 from .fdnunet import FDNUNet
 from .initializers import materialize
 
@@ -155,29 +156,31 @@ class GaussianDiffusion:
             raise ValueError("sample needs a generator or the noise")
 
         f32 = np.float32
-        x = draw(0)
-        for i, t in enumerate(sample_timesteps(self.timesteps, steps)):
-            tb = torch.full((b,), t, device=condition.device)
-            pred = self.model(x, condition, time=tb.float())
-            if self.objective == "pred_noise":
-                noise_pred = pred
-                x0 = self._x0_from_noise(x, tb, pred)
-            else:
-                x0 = pred
-                a = self.sqrt_ab[tb][:, None, None, None]
-                s = self.sqrt_1mab[tb][:, None, None, None]
-                noise_pred = (x - a * x0) / s.clamp_min(1e-8)
-            x0 = x0.clamp(-1.0, 1.0)
-            if t == 0:
-                x = x0
-                continue
-            beta, alpha, ab, var = (
-                self.host[k][t] for k in ("betas", "alphas", "alphas_bar", "posterior_var")
-            )
-            coef = float(beta / np.sqrt(f32(1.0) - ab))
-            mean = (x - coef * noise_pred) / float(np.sqrt(alpha))
-            x = mean + float(np.sqrt(var)) * draw(i + 1)
-        return x
+        with request_span("sample.request") as request:
+            x = draw(0)
+            for i, t in enumerate(sample_timesteps(self.timesteps, steps)):
+                with span("sample.step", step=i, request=request.request):
+                    tb = torch.full((b,), t, device=condition.device)
+                    pred = self.model(x, condition, time=tb.float())
+                    if self.objective == "pred_noise":
+                        noise_pred = pred
+                        x0 = self._x0_from_noise(x, tb, pred)
+                    else:
+                        x0 = pred
+                        a = self.sqrt_ab[tb][:, None, None, None]
+                        s = self.sqrt_1mab[tb][:, None, None, None]
+                        noise_pred = (x - a * x0) / s.clamp_min(1e-8)
+                    x0 = x0.clamp(-1.0, 1.0)
+                    if t == 0:
+                        x = x0
+                        continue
+                    beta, alpha, ab, var = (
+                        self.host[k][t] for k in ("betas", "alphas", "alphas_bar", "posterior_var")
+                    )
+                    coef = float(beta / np.sqrt(f32(1.0) - ab))
+                    mean = (x - coef * noise_pred) / float(np.sqrt(alpha))
+                    x = mean + float(np.sqrt(var)) * draw(i + 1)
+            return x
 
 
 def make_diffusion_model(

@@ -56,6 +56,7 @@ from ..models.fdnunet import create_models
 from ..parallel.distributed import is_main_process, sync_processes
 from ..parallel.mesh import all_reduce_mean, gather_rows, make_mesh, replicate
 from ..utils.precision import model_precision
+from ..utils.profiling import span
 from .ema import ema_update
 from .optim import AdamState, adam_init, adam_update, clip_by_global_norm, global_norm, select_
 
@@ -485,7 +486,8 @@ class Trainer:
 
             pbar = tqdm(initial=step, total=cfg.num_train_steps, desc="training")
 
-        next_batch = self._fetch_batch(step * per_step)
+        with span("train.fetch", step=step):
+            next_batch = self._fetch_batch(step * per_step)
         # The loss is read one step late: step i's value is converted after
         # step i + 1 is queued and batch i + 2 decoded, so the read never
         # leaves the device idle. pending = (step index, staged loss).
@@ -498,7 +500,8 @@ class Trainer:
                 return None
             s, staged = pending
             pending = None
-            v = staged.value()
+            with span("train.loss_read", step=s):
+                v = staged.value()
             if math.isfinite(v):
                 nan_streak = 0
             else:
@@ -518,47 +521,50 @@ class Trainer:
             return v
 
         while step < cfg.num_train_steps:
-            batch = next_batch
-            staged = _StagedLoss(self._train_step(batch))
-            if step + 1 < cfg.num_train_steps:
-                next_batch = self._fetch_batch((step + 1) * per_step)
-            loss_value = resolve_pending()
-            pending = (step, staged)
-            if pbar is not None:
-                pbar.update(1)
-
-            new_step = step + 1
-            total_sample_loss = None
-            image_filenames = None
-            ranges = None
-            milestone = None
-            at_milestone = (
-                new_step % cfg.num_steps_per_milestone == 0
-                or new_step % cfg.num_steps_per_soft_milestone == 0
-            )
-            if wandb_inject_function is not None or at_milestone:
-                # the callback needs this step's value; milestones wait for
-                # the device anyway, so keep the log in order
+            with span("train.step", step=step):
+                batch = next_batch
+                with span("train.dispatch", step=step):
+                    staged = _StagedLoss(self._train_step(batch))
+                if step + 1 < cfg.num_train_steps:
+                    with span("train.fetch", step=step + 1):
+                        next_batch = self._fetch_batch((step + 1) * per_step)
                 loss_value = resolve_pending()
-            if new_step % cfg.num_steps_per_milestone == 0:
-                image_filenames, ranges, total_sample_loss = self.sample_and_save()
-                logging.info(f"sample loss: {total_sample_loss:.4f}")
-                if total_sample_loss < self.lowest_sample_loss:
-                    self.lowest_sample_loss = total_sample_loss
-                    milestone = "best"
-                else:
-                    milestone = "latest"
-                self.save_checkpoint(milestone)
-            elif new_step % cfg.num_steps_per_soft_milestone == 0:
-                _, _, total_sample_loss = self.sample_and_save(save=False)
-                logging.info(f"sample loss: {total_sample_loss:.4f}")
+                pending = (step, staged)
+                if pbar is not None:
+                    pbar.update(1)
 
-            if wandb_inject_function is not None:
-                wandb_inject_function(
-                    new_step, loss_value, total_sample_loss, image_filenames,
-                    ranges, milestone,
+                new_step = step + 1
+                total_sample_loss = None
+                image_filenames = None
+                ranges = None
+                milestone = None
+                at_milestone = (
+                    new_step % cfg.num_steps_per_milestone == 0
+                    or new_step % cfg.num_steps_per_soft_milestone == 0
                 )
-            step = new_step
+                if wandb_inject_function is not None or at_milestone:
+                    # the callback needs this step's value; milestones wait for
+                    # the device anyway, so keep the log in order
+                    loss_value = resolve_pending()
+                if new_step % cfg.num_steps_per_milestone == 0:
+                    image_filenames, ranges, total_sample_loss = self.sample_and_save()
+                    logging.info(f"sample loss: {total_sample_loss:.4f}")
+                    if total_sample_loss < self.lowest_sample_loss:
+                        self.lowest_sample_loss = total_sample_loss
+                        milestone = "best"
+                    else:
+                        milestone = "latest"
+                    self.save_checkpoint(milestone)
+                elif new_step % cfg.num_steps_per_soft_milestone == 0:
+                    _, _, total_sample_loss = self.sample_and_save(save=False)
+                    logging.info(f"sample loss: {total_sample_loss:.4f}")
+
+                if wandb_inject_function is not None:
+                    wandb_inject_function(
+                        new_step, loss_value, total_sample_loss, image_filenames,
+                        ranges, milestone,
+                    )
+                step = new_step
 
         resolve_pending()
         if pbar is not None:

@@ -25,13 +25,16 @@ the same scalar-Jacobi rows; the applies within 1e-6 of the largest
 element, on the same operands.
 """
 
+import json
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from fea_tpu_torch.datagen import batched
 from fea_tpu_torch.fem import banded, coarse, flatgroup
-from fea_tpu_torch.utils.profiling import device_trace
+from fea_tpu_torch.utils.profiling import SPAN_TRACK, device_trace, span
 from test_torch_banded import permuted_plate
 from test_torch_flatgroup import jax_payloads, payload_problems, port_payloads
 
@@ -324,9 +327,21 @@ def test_device_trace_writes_a_trace(tmp_path):
         torch.ones(4).sum()
     assert not any(tmp_path.iterdir())
     with device_trace(str(tmp_path)):
-        torch.ones(4).sum()
+        with span("probe.span", step=7):
+            time.sleep(1e-3)
+            torch.ones(4).sum()
+            time.sleep(1e-3)
     traces = [p for p in tmp_path.iterdir() if p.name.endswith(".pt.trace.json")]
     assert len(traces) == 1 and traces[0].stat().st_size > 0
+    # one file: the host's operators and the program's span, on one clock
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    (probe,) = [e for e in events if e.get("name") == "probe.span"]
+    assert probe["ph"] == "X" and probe["pid"] == SPAN_TRACK and probe["args"]["step"] == 7
+    ops = [e for e in events if e.get("name") == "aten::sum" and e.get("ph") == "X"]
+    assert ops and all(op["pid"] != SPAN_TRACK for op in ops)
+    for op in ops:
+        assert probe["ts"] <= op["ts"] and op["ts"] + op["dur"] <= probe["ts"] + probe["dur"]
 
 
 def _no_triangulate_fallback():
