@@ -13,6 +13,7 @@ import torch
 
 from ..utils.precision import model_precision
 from ..utils.profiling import request_span, span
+from . import graphed
 from .fdnunet import FDNUNet
 from .initializers import materialize
 
@@ -83,6 +84,8 @@ class GaussianDiffusion:
         self.host = {k: v.astype(np.float32) for k, v in schedules.items()}
         for name, value in self.host.items():
             setattr(self, name, torch.from_numpy(value).to(device))
+        # the sampler's forwards, one CUDA graph replay a step on the card
+        self.graphs = graphed.GraphedForward()
 
     def q_sample(self, x0, t, noise):
         a = self.sqrt_ab[t][:, None, None, None]
@@ -135,7 +138,9 @@ class GaussianDiffusion:
         condition is NHWC (B, H, W, 5). The random draws come from
         `generator`, one image at a time as the loop needs it, or from
         `noise` of shape (steps + 1, B, H, W, 2): noise[0] is the initial
-        image and noise[i + 1] step i's noise."""
+        image and noise[i + 1] step i's noise. On the card each step's
+        model forward is replayed from a CUDA graph (`graphed`), captured
+        at the first call at a shape; the update stays eager."""
         b, h, w, _ = condition.shape
         shape = (b, h, w, 2)
         steps = num_steps or self.timesteps
@@ -156,7 +161,7 @@ class GaussianDiffusion:
             raise ValueError("sample needs a generator or the noise")
 
         f32 = np.float32
-        with request_span("sample.request") as request:
+        with request_span("sample.request") as request, graphed.scope(self.graphs):
             x = draw(0)
             for i, t in enumerate(sample_timesteps(self.timesteps, steps)):
                 with span("sample.step", step=i, request=request.request):

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..utils.precision import model_precision
+from . import graphed
 from .attention import FullAttention, LinearAttention
 from .blocks import (
     AuxiliaryRangePredictor,
@@ -347,7 +348,14 @@ class FDNUNet(nn.Module):
         """NHWC x (B, H, W, num_channels) and condition stack;
         `x_self_condition` (zeros when absent) where the model
         self-conditions; `time` (B,) is used when the model has a time
-        embedding."""
+        embedding. Inside a `graphed.scope` (the sampler's loop) the
+        forward is replayed from a CUDA graph where it can be."""
+        runner = graphed.active()
+        if runner is not None:
+            return runner(self, self._forward, x, x_auxiliary_condition, x_self_condition, time)
+        return self._forward(x, x_auxiliary_condition, x_self_condition, time)
+
+    def _forward(self, x, x_auxiliary_condition, x_self_condition, time):
         _check_divisible(x, self.num_stages)
         if self.num_condition_channels is not None:
             x = _self_condition(x, x_self_condition)

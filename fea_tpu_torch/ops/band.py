@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 from ..fem.banded import ELL_ROWS, band_matvec_reference
-from . import cg
+from . import cg, graphs
 from ._build import build_library
 
 # a block of the kernel: SLICES slices of ELL_ROWS rows for LANES lanes,
@@ -101,7 +101,7 @@ def band_matvec(vals, cols, u, y, widths):
                                   widths.data_ptr(), u.data_ptr(), y.data_ptr(), C, n_dofs, slots,
                                   torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, "launch")
-    cg._count(band_matvec)
+    graphs.count(band_matvec)
 
 
 band_matvec.launches = 0

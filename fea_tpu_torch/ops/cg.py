@@ -30,12 +30,12 @@ the tensors lie on the CPU. Every kernel launch adds one to its wrapper's
 import copy
 import ctypes
 import functools
-import threading
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from . import graphs
 from ._build import build_library
 
 DTYPES = (torch.float32, torch.float64)
@@ -307,66 +307,13 @@ def _ptr(t):
 
 # ---- capture: a block of bodies as one CUDA graph -----------------------
 
-_capture = threading.local()  # this thread's tally while it records a graph
-_side_streams = threading.local()
 
-
-def _count(wrapper):
-    tally = getattr(_capture, "tally", None)
-    if tally is None:
-        wrapper.launches += 1
-    else:  # recorded, not launched: counted at each replay
-        tally[wrapper] = tally.get(wrapper, 0) + 1
-
-
-class CapturedBlock:
-    """A CUDA graph of some loop bodies, replayed on the caller's stream;
-    each replay adds the kernels it launches to their wrappers' counts.
-    `close` frees the graph and its private memory pool."""
-
-    def __init__(self, graph, tally):
-        self.graph, self.tally = graph, tally
-
-    def replay(self):
-        self.graph.replay()
-        for wrapper, n in self.tally.items():
-            wrapper.launches += n
-
-    def close(self):
-        self.graph.reset()
-        self.graph = None
-
-
-def capture(fn, warmup, device) -> CapturedBlock:
-    """Record `fn`'s device work on `device` as a CUDA graph. It is
-    captured on a side stream of this thread's own, after that stream
-    waited for the caller's, and after `warmup` ran there once (so that
-    libraries such as cuBLAS set up their per-stream state outside the
-    capture); the capture mode is thread-local, so other threads may
-    allocate and launch meanwhile. A failed capture raises."""
+def capture(fn, warmup, device) -> graphs.CapturedBlock:
+    """`graphs.capture` of a block of loop bodies, after the CG kernels
+    were loaded into `device`'s context (a kernel that loaded lazily at its
+    first launch would load while the graph is recorded)."""
     load(device.index or 0)
-    streams = getattr(_side_streams, "streams", None)
-    if streams is None:
-        streams = _side_streams.streams = {}
-    if device not in streams:
-        streams[device] = torch.cuda.Stream(device)
-    side, current = streams[device], torch.cuda.current_stream(device)
-    side.wait_stream(current)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(device), torch.cuda.stream(side):
-        warmup()
-        _capture.tally = {}
-        try:
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                fn()
-            finally:
-                graph.capture_end()
-            tally = _capture.tally
-        finally:
-            _capture.tally = None
-    current.wait_stream(side)
-    return CapturedBlock(graph, tally)
+    return graphs.capture(fn, warmup, device)
 
 
 # ---- launch 1: alpha ----------------------------------------------------
@@ -404,7 +351,7 @@ def cg_alpha(state, Ap):
             state.k.shape[0], state.P, state.Ns, cluster, span, vec, state.max_iters,
             state.stall_limit, _stream(state.x.device))
     _raise_on(err, "cg_alpha launch")
-    _count(cg_alpha)
+    graphs.count(cg_alpha)
 
 
 cg_alpha.launches = 0
@@ -438,7 +385,7 @@ def cg_update_xr(state, Ap):
             *map(_ptr, (state.x, state.r, state.p, Ap, state.alpha, state.lane)),
             state.k.shape[0], state.P, state.Ns, blocks, span, vec, _stream(state.x.device))
     _raise_on(err, "cg_update_xr launch")
-    _count(cg_update_xr)
+    graphs.count(cg_update_xr)
 
 
 cg_update_xr.launches = 0
@@ -487,7 +434,7 @@ def jacobi_restrict(r, block_inv, arms, members, zj, rc):
             L, PN, NA, W, plan.span, vec, plan.warps, plan.lanes, int(plan.jacobi_first),
             _stream(r.device))
     _raise_on(err, "jacobi_restrict launch")
-    _count(jacobi_restrict)
+    graphs.count(jacobi_restrict)
 
 
 jacobi_restrict.launches = 0
@@ -574,7 +521,7 @@ def prolong_dots(zj, zc, agg, arms, free, z, n_seg, state=None):
                  else (s.rz, s.r2, s.best, s.stall, s.k, s.beta, s.run, s.lane)),
             L, n_seg, Ns, cluster, span, vec, NA, _stream(z.device))
     _raise_on(err, "prolong_dots launch")
-    _count(prolong_dots)
+    graphs.count(prolong_dots)
 
 
 prolong_dots.launches = 0
@@ -605,7 +552,7 @@ def cg_update_p(state):
             *map(_ptr, (state.p, state.z, state.beta, state.run, state.lane)),
             state.k.shape[0], state.P, state.Ns, blocks, span, vec, _stream(state.x.device))
     _raise_on(err, "cg_update_p launch")
-    _count(cg_update_p)
+    graphs.count(cg_update_p)
 
 
 cg_update_p.launches = 0

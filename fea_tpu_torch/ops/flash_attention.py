@@ -17,6 +17,7 @@ from pathlib import Path
 
 import torch
 
+from . import graphs
 from ._build import build_library
 
 HEAD_DIMS = (32, 64, 128)
@@ -95,9 +96,10 @@ def _check_cuda_inputs(q, k, v):
 def flash_attention(q, k, v, scale: float = None):
     """softmax(q k^T * scale) v for q (BH, Nq, D), k/v (BH, Nk, D); Nk may
     differ from Nq (memory-KV slots). CUDA tensors go through the CUDA
-    kernel, and `flash_attention.launches` counts its launches; CPU tensors
-    go through the plain version. The kernel is forward only: on CUDA
-    tensors that require grad, with grad enabled, it raises."""
+    kernel, and `flash_attention.launches` counts its launches (a launch
+    recorded in a CUDA graph at each replay); CPU tensors go through the
+    plain version. The kernel is forward only: on CUDA tensors that
+    require grad, with grad enabled, it raises."""
     if q.device.type == k.device.type == v.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     _check_cuda_inputs(q, k, v)
@@ -117,7 +119,7 @@ def flash_attention(q, k, v, scale: float = None):
             "flash attention kernel launch failed: "
             + lib.fea_cuda_error_string(err).decode()
         )
-    flash_attention.launches += 1
+    graphs.count(flash_attention)
     return out
 
 

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from . import graphs
 from ._build import build_library
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -292,7 +293,7 @@ def _forward(x, gamma, beta, num_groups, eps):
     picks for x; counts the call."""
     _layout(x)
     out = _launch_forward(x, gamma, beta, num_groups, eps, forward_plan(x, num_groups))
-    group_norm_silu.launches_fwd += 1
+    graphs.count(group_norm_silu, "launches_fwd")
     return out
 
 
@@ -331,7 +332,7 @@ def _backward(x, gamma, coef, dy, num_groups):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _raise_on(err, "backward")
-    group_norm_silu.launches_bwd += 1
+    graphs.count(group_norm_silu, "launches_bwd")
     return dx, grads[0], grads[1]
 
 
@@ -354,8 +355,9 @@ class _GroupNormSiLU(torch.autograd.Function):
 def group_norm_silu(x, gamma, beta, num_groups: int = 8, eps: float = 1e-6):
     """silu(GroupNorm(x) * gamma + beta) for x (B, C, H, W) and gamma,
     beta (C,). CUDA tensors go through the CUDA kernels, and
-    `group_norm_silu.launches_fwd` / `.launches_bwd` count their calls; CPU
-    tensors go through the plain version."""
+    `group_norm_silu.launches_fwd` / `.launches_bwd` count their calls (a
+    call recorded in a CUDA graph at each replay); CPU tensors go through
+    the plain version."""
     if x.device.type == gamma.device.type == beta.device.type == "cpu":
         return group_norm_silu_reference(x, gamma, beta, num_groups, eps)
     _check_cuda_inputs(x, gamma, beta, num_groups)
