@@ -19,7 +19,11 @@ It differs from fea_tpu's CLI in these ways:
     gloo); the arguments are parsed before the group is joined, since
     `--device` picks the group's device;
   * `generate --num_devices` above 1 without `--batched` raises, where
-    fea_tpu ignores it: the sequential path runs on one device.
+    fea_tpu ignores it: the sequential path runs on one device;
+  * `train-diffusion` takes `--use_full_attention` and `--self_condition`
+    (full attention at every stage; the x0 estimate fed back,
+    `models/diffusion.py`), which fea_tpu's lacks; its checkpoint records
+    them.
 The commands that run the model (train, train-diffusion, sample, and app
 with a checkpoint) print one line naming the precision of the model's f32
 convolutions (utils/precision.py), which their entry points run under.
@@ -333,6 +337,11 @@ def _add_train_diffusion(sub):
     p.add_argument("--conditions_per_plate", type=int, default=4)
     p.add_argument("--num_steps_per_condition", type=int, default=6)
     p.add_argument("--results_dir", type=str, default="results_diffusion")
+    p.add_argument("--use_full_attention", action="store_true",
+                   help="full attention at every stage (lucidrains' Unet(full_attn=True))")
+    p.add_argument("--self_condition", action="store_true",
+                   help="feed the model its own x0 estimate (GaussianDiffusion("
+                        "self_condition=True))")
     p.add_argument("--skip_dataset_size_check", action="store_true",
                    help=argparse.SUPPRESS)
     return p
@@ -354,6 +363,8 @@ def _cmd_train_diffusion(args, device):
         objective=args.objective,
         results_folder=args.results_dir,
         skip_dataset_size_check=args.skip_dataset_size_check,
+        use_full_attention=args.use_full_attention,
+        self_condition=args.self_condition,
     )
     _log_precision("train-diffusion")
     DiffusionTrainer(config, device=device).train()

@@ -4,6 +4,13 @@ schedules, q_sample, the training loss and the ancestral / strided sampler.
 The schedules are computed in float64 and cast once to float32. The
 sampler is a Python loop over the time steps; its per-step scalars are
 float32, as in fea_tpu.
+
+With `self_condition` the model also takes an estimate of x0 (Chen, Zhang
+& Hinton 2022, as lucidrains' GaussianDiffusion(self_condition=True)
+feeds it): the sampler hands each step the last step's clamped x0, and
+zeros at the first; the loss, on one coin a batch, first estimates x0
+with a forward under no_grad and hands it on detached. fea_tpu stores the
+setting and reads it nowhere.
 """
 
 from typing import Optional
@@ -43,7 +50,15 @@ def sample_timesteps(timesteps: int, steps: int) -> list:
 class GaussianDiffusion:
     """DDPM over (H, W, 2) displacement images with FDN conditioning. The
     condition stack is [forces(2), constraints(1), materials(2)]; the model
-    predicts noise ('pred_noise') or the clean image ('pred_x0')."""
+    predicts noise ('pred_noise') or the clean image ('pred_x0').
+
+    `self_cond_fed` and `self_cond_zero` count, process-wide, the
+    self-conditioned model's forwards that were handed an estimate of x0
+    and those that were handed zeros (or None, which the model turns into
+    zeros)."""
+
+    self_cond_fed = 0
+    self_cond_zero = 0
 
     def __init__(
         self,
@@ -59,11 +74,12 @@ class GaussianDiffusion:
             raise ValueError(f"unknown beta schedule {beta_schedule}")
         if not model.use_time_embedding:
             raise ValueError("diffusion needs the time embedding")
+        if self_condition and model.num_condition_channels is None:
+            raise ValueError("self-conditioning needs a model built with num_condition_channels "
+                             "(make_diffusion_model(self_condition=True))")
         self.model = model
         self.timesteps = timesteps
         self.objective = objective
-        # stored as fea_tpu stores it; neither package's loss or sampler
-        # reads it
         self.self_condition = self_condition
 
         betas = BETA_SCHEDULES[beta_schedule](timesteps)
@@ -104,11 +120,19 @@ class GaussianDiffusion:
         generator: Optional[torch.Generator] = None,
         t: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
+        coin: Optional[float] = None,
     ) -> torch.Tensor:
         """Mean-squared diffusion loss on a batch: NHWC x0 (B, H, W, 2) and
         condition (B, H, W, 5). The time steps t (B,) uniform over
         [0, timesteps) and the noise (x0's shape) are drawn from `generator`
-        unless given. The target is the noise ('pred_noise') or x0."""
+        unless given. The target is the noise ('pred_noise') or x0.
+
+        With self_condition, a coin uniform over [0, 1), drawn from
+        `generator` after t and the noise unless given (the host waits on
+        a generator of the card's; DiffusionTrainer draws it on the host):
+        under 0.5 a forward under no_grad estimates x0 (unclamped, as
+        lucidrains' model_predictions gives it to its loss) and the graded
+        forward takes it detached; else the graded forward takes zeros."""
         if generator is None and (t is None or noise is None):
             raise ValueError("loss needs a generator or both t and the noise")
         b = x0.shape[0]
@@ -121,7 +145,26 @@ class GaussianDiffusion:
                 x0.shape, generator=generator, device=x0.device, dtype=x0.dtype
             )
         x_t = self.q_sample(x0, t, noise)
-        pred = self.model(x_t, condition, time=t.float())
+        if not self.self_condition:
+            pred = self.model(x_t, condition, time=t.float())
+        else:
+            if coin is None:
+                if generator is None:
+                    raise ValueError("a self-conditioned loss needs a generator or the coin")
+                coin = float(torch.rand((), generator=generator, device=x0.device))
+            x_self = None
+            if coin < 0.5:
+                with torch.no_grad(), span("train.self_cond"):
+                    estimate = self.model(x_t, condition, time=t.float())
+                    if self.objective == "pred_noise":
+                        estimate = self._x0_from_noise(x_t, t, estimate)
+                    x_self = estimate.detach()
+                GaussianDiffusion.self_cond_zero += 1  # the estimate's own forward
+            pred = self.model(x_t, condition, x_self_condition=x_self, time=t.float())
+            if x_self is None:
+                GaussianDiffusion.self_cond_zero += 1
+            else:
+                GaussianDiffusion.self_cond_fed += 1
         target = noise if self.objective == "pred_noise" else x0
         return torch.mean((pred - target) ** 2)
 
@@ -140,7 +183,10 @@ class GaussianDiffusion:
         `noise` of shape (steps + 1, B, H, W, 2): noise[0] is the initial
         image and noise[i + 1] step i's noise. On the card each step's
         model forward is replayed from a CUDA graph (`graphed`), captured
-        at the first call at a shape; the update stays eager."""
+        at the first call at a shape; the update stays eager. With
+        self_condition step 0's model takes a zeros tensor made once a
+        call and step i > 0 step i - 1's clamped x0, so that every step
+        replays one graph."""
         b, h, w, _ = condition.shape
         shape = (b, h, w, 2)
         steps = num_steps or self.timesteps
@@ -163,10 +209,19 @@ class GaussianDiffusion:
         f32 = np.float32
         with request_span("sample.request") as request, graphed.scope(self.graphs):
             x = draw(0)
+            x_self = torch.zeros_like(x) if self.self_condition else None
             for i, t in enumerate(sample_timesteps(self.timesteps, steps)):
                 with span("sample.step", step=i, request=request.request):
                     tb = torch.full((b,), t, device=condition.device)
-                    pred = self.model(x, condition, time=tb.float())
+                    if x_self is None:
+                        pred = self.model(x, condition, time=tb.float())
+                    else:
+                        pred = self.model(x, condition, x_self_condition=x_self,
+                                          time=tb.float())
+                        if i:
+                            GaussianDiffusion.self_cond_fed += 1
+                        else:
+                            GaussianDiffusion.self_cond_zero += 1
                     if self.objective == "pred_noise":
                         noise_pred = pred
                         x0 = self._x0_from_noise(x, tb, pred)
@@ -176,6 +231,8 @@ class GaussianDiffusion:
                         s = self.sqrt_1mab[tb][:, None, None, None]
                         noise_pred = (x - a * x0) / s.clamp_min(1e-8)
                     x0 = x0.clamp(-1.0, 1.0)
+                    if x_self is not None:
+                        x_self = x0
                     if t == 0:
                         x = x0
                         continue
@@ -197,19 +254,24 @@ def make_diffusion_model(
     *,
     device,
     generator: torch.Generator,
+    self_condition: bool = False,
     **kw,
 ) -> GaussianDiffusion:
     """GaussianDiffusion over an FDNUNet with the time embedding and the
     5-channel condition stack, on `device`, weights drawn from
-    `generator`; `**kw` (e.g. use_flash_attention) goes to FDNUNet."""
+    `generator`; with self_condition the model takes the x0 estimate too
+    (num_condition_channels=2) and the diffusion feeds it. `**kw` (e.g.
+    use_flash_attention, use_full_attention) goes to FDNUNet."""
     with torch.device("meta"):
         model = FDNUNet(
             input_dim=input_dim,
             num_stages=num_stages,
             num_channels=2,
             num_auxiliary_condition_channels=5,  # forces(2)+constraints(1)+materials(2)
+            num_condition_channels=2 if self_condition else None,
             use_time_embedding=True,
             **kw,
         )
     materialize(model, device, generator)
-    return GaussianDiffusion(model, timesteps=timesteps, objective=objective)
+    return GaussianDiffusion(model, timesteps=timesteps, objective=objective,
+                             self_condition=self_condition)

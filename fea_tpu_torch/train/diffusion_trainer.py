@@ -4,8 +4,15 @@ fea_tpu/train/diffusion_trainer.py.
 The FDN-UNet denoiser is conditioned on [forces, constraints, materials]
 (5 channels) and learns the displacement image distribution: one clipped
 Adam chain and an EMA every step, the EMA driving sampling. The time steps
-and the noise come from a torch.Generator seeded from the config. Flash
-attention is off, as in fea_tpu: its kernel has no backward.
+and the noise come from a torch.Generator seeded from the config, and
+self-conditioning's coin from a host generator seeded alike, so that the
+step does not wait on the card. Flash attention is off, as in fea_tpu:
+its kernel has no backward. So full attention at stage 0
+(`use_full_attention`) holds its scores, and the trainer refuses a batch
+and image size whose scores exceed the device's memory.
+`use_full_attention` and `self_condition` define the network; a
+checkpoint records them and `load_checkpoint` rebuilds the network it
+holds.
 
 Data parallel under a process group, as the regression Trainer: the params
 are broadcast from rank 0, each rank feeds its row block of the batch, and
@@ -15,7 +22,9 @@ one-rank step; one all-reduce mean of the gradients and the loss comes
 before the clip. Rank 0 writes the checkpoints.
 """
 
+import dataclasses
 import logging
+import os
 import shutil
 from dataclasses import dataclass
 from pathlib import Path
@@ -52,6 +61,19 @@ class DiffusionConfig:
     seed: int = 0
     n_devices: Optional[int] = None  # as TrainerConfig.n_devices
     skip_dataset_size_check: bool = False
+    use_full_attention: bool = False
+    self_condition: bool = False
+
+
+# the settings that define the network, which a checkpoint records
+NETWORK_SETTINGS = ("use_full_attention", "self_condition")
+
+
+def device_memory_bytes(device: torch.device) -> int:
+    """The card's total memory, or the host's for a CPU device."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
 class DiffusionTrainer:
@@ -76,6 +98,16 @@ class DiffusionTrainer:
         self.sampler = EpochSampler(len(self.dataset), seed=config.seed)
 
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.coin_generator = torch.Generator().manual_seed(config.seed)
+        self._build()
+        self.step = 0
+        self.results_folder = Path(config.results_folder)
+        self.results_folder.mkdir(parents=True, exist_ok=True)
+
+    def _build(self):
+        """The network of the config's settings, its weights drawn from the
+        generator and broadcast from rank 0, a fresh Adam state and EMA."""
+        config = self.config
         self.diffusion: GaussianDiffusion = make_diffusion_model(
             image_size=config.dataset_image_size,
             input_dim=config.input_dim,
@@ -83,18 +115,39 @@ class DiffusionTrainer:
             timesteps=config.timesteps,
             objective=config.objective,
             use_flash_attention=False,
+            use_full_attention=config.use_full_attention,
+            self_condition=config.self_condition,
             device=self.device,
             generator=self.generator,
         )
+        # the forward keeps the softmax of stage 0's two calls for the
+        # backward and holds one call's scores besides
+        self._check_scores_fit(config.train_batch_size // self.dp.world_size,
+                               config.dataset_image_size, 3, "train")
         model = self.diffusion.model
         self.names = [n for n, _ in model.named_parameters()]
         self.params = list(model.parameters())
         replicate(self.params)
         self.opt_state = adam_init(self.params)
         self.ema_params = [p.detach().clone() for p in self.params]
-        self.step = 0
-        self.results_folder = Path(config.results_folder)
-        self.results_folder.mkdir(parents=True, exist_ok=True)
+
+    def _check_scores_fit(self, batch: int, size: int, copies: int, what: str):
+        """Raises where `copies` of one stage-0 full-attention call's f32
+        scores, (batch, heads, n, n + memory slots) at n = size x size
+        pixels, exceed the device's memory: a lower bound of what the
+        step needs, which then cannot run."""
+        if not self.config.use_full_attention:
+            return
+        attention = self.diffusion.model.down0_attention
+        n = size * size
+        need = copies * batch * attention.num_heads * n * (n + attention.memory_kv.shape[2]) * 4
+        have = device_memory_bytes(torch.device(self.device))
+        if need > have:
+            raise ValueError(
+                f"full attention cannot {what} at {size} px and batch {batch}: stage 0's "
+                f"attention scores take at least {need / 2**30:.1f} GiB of the device's "
+                f"{have / 2**30:.1f} GiB (the trainer has no flash attention, whose kernel "
+                f"has no backward); use a smaller image or batch")
 
     @staticmethod
     def batch_condition(batch: Dict[str, np.ndarray]) -> np.ndarray:
@@ -121,7 +174,10 @@ class DiffusionTrainer:
         ranks, as a device scalar."""
         if t is None and noise is None:
             t, noise = self._draws(x0)
-        loss = self.diffusion.loss(x0, condition, self.generator, t=t, noise=noise)
+        coin = None
+        if self.config.self_condition:
+            coin = float(torch.rand((), generator=self.coin_generator))
+        loss = self.diffusion.loss(x0, condition, self.generator, t=t, noise=noise, coin=coin)
         grads = list(torch.autograd.grad(loss, self.params))
         loss = loss.detach()
         all_reduce_mean(grads + [loss])
@@ -165,6 +221,7 @@ class DiffusionTrainer:
         """DDPM samples for NHWC condition (B, H, W, 5), through the EMA
         weights unless use_ema is False; the noise comes from `seed`."""
         condition = torch.as_tensor(condition, device=self.device)
+        self._check_scores_fit(condition.shape[0], condition.shape[1], 1, "sample")
         generator = torch.Generator(device=self.device).manual_seed(seed)
         if not use_ema:
             return self.diffusion.sample(condition, num_steps, generator=generator)
@@ -198,17 +255,30 @@ class DiffusionTrainer:
                           "nu": self.opt_state.nu},
             "ema_params": dict(zip(self.names, self.ema_params)),
             "generator": self.generator.get_state(),
+            "coin_generator": self.coin_generator.get_state(),
             "step": self.step,
+            "model": {k: getattr(self.config, k) for k in NETWORK_SETTINGS},
         }, path)
 
     def load_checkpoint(self, milestone):
+        """The checkpoint's state. Where it records other network settings
+        than the config's (one without them records the defaults), the
+        trainer takes a copy of the config with them and rebuilds the
+        network first."""
         state = torch.load(self._ckpt_path(milestone), map_location=self.device,
                            weights_only=True)
+        saved = state.get("model", {})
+        settings = {k: bool(saved.get(k, False)) for k in NETWORK_SETTINGS}
+        if any(getattr(self.config, k) != v for k, v in settings.items()):
+            self.config = dataclasses.replace(self.config, **settings)
+            self._build()
         self.diffusion.model.load_state_dict(state["params"])
         opt = state["opt_state"]
         self.opt_state = AdamState(opt["count"], list(opt["mu"]), list(opt["nu"]))
         self.ema_params = [state["ema_params"][n] for n in self.names]
         self.generator.set_state(state["generator"].cpu())
+        if "coin_generator" in state:
+            self.coin_generator.set_state(state["coin_generator"].cpu())
         self.step = int(state["step"])
         opt = self.opt_state
         replicate([*self.params, opt.count, *opt.mu, *opt.nu, *self.ema_params])

@@ -2,7 +2,8 @@
 fea_tpu's, on the CPU.
 
 The two argparse trees hold the same subcommands, options, defaults and
-choices; the port adds only the global `--device`. fea_tpu's tree is built
+choices; the port adds only the global `--device` and train-diffusion's
+`--use_full_attention` and `--self_condition`. fea_tpu's tree is built
 from its `_add_*` functions (fea_tpu/cli.py imports only argparse and os
 at module level). Then the port's CLI runs the pipeline end to end with
 `--device cpu` at a small size (32 px, input_dim 8, 2 stages): generate
@@ -65,11 +66,17 @@ def test_top_level_adds_only_device():
                                              "_StoreAction")}
 
 
+# the port's options that fea_tpu's CLI lacks, by subcommand
+PORT_ONLY = {"train-diffusion": {
+    (flag,): (flag[2:], False, None, None, 0, True, False, "_StoreTrueAction")
+    for flag in ("--use_full_attention", "--self_condition")}}
+
+
 @pytest.mark.parametrize("command", list(cli.COMMANDS))
 def test_subcommand_options_match(command):
     ours = options(subparsers(cli.build_parser())[command])
     theirs = options(subparsers(jax_parser())[command])
-    assert ours == theirs
+    assert ours == {**theirs, **PORT_ONLY.get(command, {})}
     assert ours  # every subcommand has options
 
 

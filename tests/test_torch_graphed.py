@@ -60,10 +60,10 @@ class StandIn:
         return self.blocks[-1]
 
 
-def _diffusion(seed=0, image=S):
+def _diffusion(seed=0, image=S, **kw):
     return make_diffusion_model(image_size=image, input_dim=DIM, num_stages=STAGES, timesteps=T,
                                 use_flash_attention=True, device="cpu",
-                                generator=torch.Generator().manual_seed(seed))
+                                generator=torch.Generator().manual_seed(seed), **kw)
 
 
 def _inputs(batch=2, seed=1, image=S, device="cpu"):
@@ -233,6 +233,26 @@ def test_the_sampler_hook_sees_its_own_x_and_a_new_output_each_step():
         assert len({x.data_ptr() for x, _ in rec}) == STEPS
 
 
+def test_a_self_conditioned_request_replays_one_graph():
+    """Step 0 hands the model a zeros tensor, not None, so that every step
+    of a request has one key: one capture, then replays, and the same
+    outputs as the eager sampler."""
+    kw = dict(self_condition=True, use_full_attention=True)
+    diffusion, eager = _diffusion(**kw), _diffusion(**kw)
+    stand_in = StandIn()
+    diffusion.graphs = GraphedForward(stand_in, "cpu")
+    _, cond, _ = _inputs()
+    before = _counts()
+    got = [diffusion.sample(cond, STEPS, generator=torch.Generator().manual_seed(s))
+           for s in (3, 4)]
+    assert _since(before) == (1, 2 * STEPS - 1, 0) and stand_in.calls == 1
+    ((inputs, _),) = diffusion.graphs._modules()[diffusion.model].graphs.values()
+    assert inputs[2] is not None  # the estimate is one of the graph's inputs
+    want = [eager.sample(cond, STEPS, generator=torch.Generator().manual_seed(s))
+            for s in (3, 4)]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_the_capture_is_a_span_in_the_first_step():
     diffusion = _diffusion()
     diffusion.graphs = GraphedForward(StandIn(), "cpu")
@@ -287,10 +307,11 @@ def cuda_or_skip():
 CARD_IMAGE, CARD_STAGES = 64, 3
 
 
-def _card_diffusion(device):
+def _card_diffusion(device, **kw):
     diffusion = make_diffusion_model(image_size=CARD_IMAGE, input_dim=32, num_stages=CARD_STAGES,
                                      timesteps=1000, use_flash_attention=True, device=device,
-                                     generator=torch.Generator(device=device).manual_seed(0))
+                                     generator=torch.Generator(device=device).manual_seed(0),
+                                     **kw)
     diffusion.model.eval()
     return diffusion
 
@@ -300,7 +321,8 @@ def _card_sample(diffusion, cond, noise, eager):
     the runner's counts) of one sample, eagerly where `eager`."""
     rec = []
     handle = diffusion.model.register_forward_hook(
-        lambda m, args, kwargs, out: rec.append((args[0], out)), with_kwargs=True)
+        lambda m, args, kwargs, out: rec.append((args[0], out, kwargs.get("x_self_condition"))),
+        with_kwargs=True)
     launches = flash_attention.launches, group_norm_silu.launches_fwd
     before = _counts()
     active = graphed.active
@@ -339,9 +361,9 @@ def test_graphed_sampling_matches_eager_on_the_card():
     for got in (first, second):
         gaps.append(_rel(got[0], eager[0]))
         assert len(got[1]) == STEPS
-        for (x, o), (want_x, want_o) in zip(got[1], eager[1]):
+        for (x, o, _), (want_x, want_o, _) in zip(got[1], eager[1]):
             gaps += [_rel(x, want_x), _rel(o, want_o)]
-        assert len({o.data_ptr() for _, o in got[1]}) == STEPS
+        assert len({o.data_ptr() for _, o, _ in got[1]}) == STEPS
     bitwise = all(torch.equal(got[0], eager[0]) for got in (first, second))
     print(f"graphed against eager: max relative gap {max(gaps):.3e}, bitwise {bitwise}; "
           f"launches a call {eager[2]}")
@@ -367,3 +389,27 @@ def test_a_replay_reads_weights_updated_in_place_and_recaptures_replaced_ones():
     want = _card_sample(diffusion, cond, noise, eager=True)
     assert got[3] == (1, STEPS - 1, 0)
     assert _rel(got[0], want[0]) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_self_conditioned_graphed_sampling_matches_eager_bit_for_bit_on_the_card():
+    """Full attention at every stage and the estimate fed back: the graphed
+    sampler against the eager one, bit for bit, step 0's estimate zeros
+    and each later one the last step's clamped x0; one capture for the
+    request's key, then replays only."""
+    device = cuda_or_skip()
+    diffusion = _card_diffusion(device, use_full_attention=True, self_condition=True)
+    gen = torch.Generator(device=device).manual_seed(3)
+    cond = torch.randn((2, CARD_IMAGE, CARD_IMAGE, 5), generator=gen, device=device)
+    noise = torch.randn((STEPS + 1, 2, CARD_IMAGE, CARD_IMAGE, 2), generator=gen, device=device)
+    eager = _card_sample(diffusion, cond, noise, eager=True)
+    first = _card_sample(diffusion, cond, noise, eager=False)
+    second = _card_sample(diffusion, cond, noise, eager=False)
+    assert first[3] == (1, STEPS - 1, 0) and second[3] == (0, STEPS, 0)
+    # a flash call at every stage and the middle, each step
+    assert eager[2] == first[2] == second[2] and eager[2][0] == STEPS * (2 * CARD_STAGES + 1)
+    for got in (first, second):
+        assert torch.equal(got[0], eager[0])
+        for (x, o, s), (want_x, want_o, want_s) in zip(got[1], eager[1]):
+            assert torch.equal(x, want_x) and torch.equal(o, want_o) and torch.equal(s, want_s)
+        assert not got[1][0][2].any()

@@ -358,15 +358,16 @@ def test_fdnunet_options(option):
 
 def test_gaussian_diffusion_stores_self_condition():
     """GaussianDiffusion(self_condition=) is stored, as fea_tpu stores it
-    (neither package's loss or sampler reads it)."""
+    (fea_tpu reads it nowhere; the port's loss and sampler feed the x0
+    estimate, tests/test_torch_selfcond.py, to a model that takes it)."""
     from fea_tpu.models import diffusion as jdiffusion
     from fea_tpu_torch.models import diffusion
 
     kw = dict(input_dim=8, num_stages=2, num_channels=2, num_auxiliary_condition_channels=5,
               use_time_embedding=True)
-    with torch.device("meta"):
-        tm = fdnunet.FDNUNet(**kw)
     for flag in (False, True):
+        with torch.device("meta"):
+            tm = fdnunet.FDNUNet(**kw, num_condition_channels=2 if flag else None)
         ours = diffusion.GaussianDiffusion(tm.to_empty(device="cpu"), timesteps=10, self_condition=flag)
         theirs = jdiffusion.GaussianDiffusion(jfdnunet.FDNUNet(**kw), timesteps=10, self_condition=flag)
         assert ours.self_condition is theirs.self_condition is flag
