@@ -13,9 +13,12 @@ attention, fused GroupNorm+SiLU, the CG loop, the band operator) are built
 at once, one nvcc each, from fea_tpu_torch/csrc into fea_tpu_torch/_build.
 Phase 1: the flash kernel (tensor cores: 3xTF32 for f32, bf16 products
          for bf16) against its plain PyTorch version at the sampler's shape
-         (BH 8, Nq 1024, Nk 1028, D 32) and a ragged one, f32 and bf16, timed
-         on the device beside the plain version and
-         F.scaled_dot_product_attention.
+         (BH 8, Nq 1024, Nk 1028, D 32), a ragged one and stage 2 of full
+         attention (BH 8, Nq 4096, Nk 4100, D 32), f32 (the wgmma route) and
+         bf16 (mma.sync), each line naming the route and launches_wgmma
+         counting the wgmma ones; at the sampler's shape timed on the device
+         beside the plain version, F.scaled_dot_product_attention and, in
+         f32, the mma.sync kernel the route no longer gives f32 at D 32.
 Phase 2: the conditional-DDPM sampler at full width (FDNUNet input_dim 64,
          4 stages, 256 px, flash attention, random seeded weights) answers
          2 requests with 25 denoising steps; the flash kernel must have
@@ -93,12 +96,13 @@ Phase 11: the regression Trainer at full width from
          18 + 18 GroupNorm+SiLU launches per step.
 Phase 12: the diffusion denoiser at full width with full attention at
          every stage and the self-conditioning input (FDNUNet input_dim
-         64, 4 stages, flash attention, num_condition_channels 2, seeded
-         weights). At 64 px one forward at ieee against the same model
+         64, 4 stages, flash attention, self_condition: 2 condition
+         channels, seeded weights). At 64 px one forward at ieee against the same model
          through plain attention; at 256 px, batch 2, one forward: 9 flash
-         launches (one per FullAttention site) and 9 GroupNorm+SiLU; its
-         stage-0 flash call (BH 8, Nq 65,536, Nk 65,540, D 32) against the
-         plain version on its first 1,024 query rows over every key; device
+         launches (one per FullAttention site), all 9 on the wgmma
+         route, and 9 GroupNorm+SiLU; its stage-0 flash call (BH 8, Nq
+         65,536, Nk 65,540, D 32) against the plain version on its first
+         and last 1,024 query rows over every key; device
          ms of the forward and of the stage-0 call beside its bound and
          scaled_dot_product_attention's memory-efficient backend.
 Phase 13: the pipeline end to end through the port's CLI
@@ -245,6 +249,7 @@ PREDICT_BATCH = 4
 IMAGE = 256
 FLASH_SHAPE = (8, 1024, 1028, 32)  # BH = 4 heads x batch 2, 32x32 px + 4 memory-KV
 RAGGED_SHAPE = (3, 100, 68, 32)
+STAGE2_SHAPE = (8, 4096, 4100, 32)  # stage 2 of full attention at 256 px
 F32_TOL = dict(atol=2e-5, rtol=1e-4)  # only the order of summation differs
 BF16_ATOL = 1e-2  # one bf16 rounding of the output
 FLASH_VS_PLAIN_ATOL = 5e-4  # one forward: fea_tpu's flash-vs-math bound
@@ -253,7 +258,10 @@ CPU_ATOL = 1e-4  # card vs CPU on a small input, f32 without TF32
 # the redesigned kernels' designs, for the kernels line
 REDESIGNED = {
     "flash_attention": "tensor-core mma.sync, 3xTF32 for f32; each KV tile's P.V accumulated "
-                       "apart and added to the running sum by a rounded FMA",
+                       "apart and added to the running sum by a rounded FMA; f32 at D 32 on "
+                       "wgmma, K and V split to TF32 once a call (a "
+                       "pre-pass in wgmma's swizzled layout, V transposed), q once a block, "
+                       "tiles fed by TMA bulk copies to two consumer warpgroups",
     "group_norm_silu_fwd": "x read once into a thread-block cluster's shared memory; "
                            "two launches with 16-byte vectors where a group does not fit",
     "group_norm_silu_bwd": "two launches over the forward's saved coefficients",
@@ -360,7 +368,7 @@ def loop_wrappers():
 def reset_counts():
     from fea_tpu_torch.ops import flash_attention, group_norm_silu
 
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.launches_wgmma = 0
     group_norm_silu.launches_fwd = group_norm_silu.launches_bwd = 0
     for wrapper in loop_wrappers():
         wrapper.launches = 0
@@ -425,16 +433,22 @@ class ConvPrecisions:
 def phase_kernel(device, earlier):
     """Checks, then {dtype: {name: ms}} at FLASH_SHAPE for the kernel, the
     plain version, the library call and, given `earlier` (another tree's
-    ops), its kernel."""
-    from fea_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    ops), its kernel; in f32 also the mma.sync kernel at that shape."""
+    from fea_tpu_torch.ops.flash_attention import (
+        _launch, flash_attention, flash_attention_reference, route)
 
     errs = {}
-    for shape in (FLASH_SHAPE, RAGGED_SHAPE):
+    for shape in (FLASH_SHAPE, RAGGED_SHAPE, STAGE2_SHAPE):
         q, k, v = qkv(shape, device, SEED)
+        kernel = route(torch.float32, shape[3])
+        before = flash_attention.launches_wgmma
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
+        if flash_attention.launches_wgmma != before + (kernel == "wgmma"):
+            raise AssertionError(f"{shape}: launches_wgmma {before} -> "
+                                 f"{flash_attention.launches_wgmma} on the {kernel} route")
         want = flash_attention_reference(q, k, v)
-        errs[shape, "f32"] = max_abs_err(got, want)
+        errs[shape, "f32"] = max_abs_err(got, want), kernel
         torch.testing.assert_close(got, want, **F32_TOL)
         qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
         got = flash_attention(qb, kb, vb)
@@ -442,7 +456,7 @@ def phase_kernel(device, earlier):
         if got.dtype != torch.bfloat16:
             raise AssertionError(f"bf16 kernel returned {got.dtype}")
         want = flash_attention_reference(qb, kb, vb)
-        errs[shape, "bf16"] = max_abs_err(got, want)
+        errs[shape, "bf16"] = max_abs_err(got, want), "mma_sync"
         torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL, rtol=0)
     q, k, v = qkv(RAGGED_SHAPE, device, SEED)
     try:
@@ -451,9 +465,12 @@ def phase_kernel(device, earlier):
         pass  # the kernel has no backward, and says so
     else:
         raise AssertionError("flash_attention took a q that requires grad")
-    for (shape, dtype), err in errs.items():
+    for (shape, dtype), (err, kernel) in errs.items():
         tol = F32_TOL if dtype == "f32" else dict(atol=BF16_ATOL, rtol=0)
-        log(f"phase 1: flash {shape} {dtype}: max abs err vs plain {err:.3e} (tolerance {tol})")
+        log(f"phase 1: flash {shape} {dtype}, {kernel} route: max abs err vs plain {err:.3e} "
+            f"(tolerance {tol})")
+    log(f"phase 1: launches_wgmma {flash_attention.launches_wgmma} of launches "
+        f"{flash_attention.launches}")
 
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -463,16 +480,20 @@ def phase_kernel(device, earlier):
             "plain": lambda: flash_attention_reference(q, k, v),
             "library": lambda: F.scaled_dot_product_attention(q, k, v),
         }
+        if dtype == torch.float32:  # the kernel f32 at D 32 took before the wgmma route
+            fns["mma_sync"] = lambda: _launch(q, k, v, FLASH_SHAPE[3] ** -0.5, wgmma=False)
         if earlier is not None:
             fns["earlier"] = lambda: earlier.flash_attention(q, k, v)
         ms = times[dtype] = in_turns(fns, 50)
         log(
-            f"phase 1: flash {FLASH_SHAPE} {str(dtype)[6:]}: kernel {ms['kernel']:.4f} ms, "
+            f"phase 1: flash {FLASH_SHAPE} {str(dtype)[6:]}: kernel {ms['kernel']:.4f} ms "
+            f"({route(dtype, FLASH_SHAPE[3])} route), "
             f"plain {ms['plain']:.4f} ms, scaled_dot_product_attention {ms['library']:.4f} ms"
+            + (f", the mma.sync kernel {ms['mma_sync']:.4f} ms" if "mma_sync" in ms else "")
             + (f", earlier kernel {ms['earlier']:.4f} ms" if earlier is not None else "")
             + " per call"
         )
-    return errs[FLASH_SHAPE, "f32"], times[torch.float32]
+    return errs[FLASH_SHAPE, "f32"][0], times[torch.float32]
 
 
 def phase_sampler(device):
@@ -1686,13 +1707,14 @@ def phase_full_attention(device, earlier):
     call too."""
     from fea_tpu_torch.models import attention, make_diffusion_model
     from fea_tpu_torch.models.fdnunet import FDNUNet
-    from fea_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from fea_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference, route)
     from fea_tpu_torch.utils.precision import model_precision
 
-    kw = dict(input_dim=64, num_stages=4, use_full_attention=True, num_condition_channels=2)
+    kw = dict(input_dim=64, num_stages=4, use_full_attention=True)
     generator = torch.Generator(device=device).manual_seed(SEED + 12)
     model = make_diffusion_model(image_size=IMAGE, use_flash_attention=True, device=device,
-                                 generator=generator, **kw).model.eval()
+                                 generator=generator, self_condition=True, **kw).model.eval()
     sites = [n for n, m in model.named_modules() if isinstance(m, attention.FullAttention)]
     if len(sites) != 2 * 4 + 1:  # down and up at each of 4 stages, and the middle
         raise AssertionError(f"FullAttention at {sites}")
@@ -1700,7 +1722,8 @@ def phase_full_attention(device, earlier):
         f"{sum(p.numel() for p in model.parameters())} parameters, FullAttention at {sites}")
     with torch.device("meta"):
         plain = FDNUNet(num_channels=2, num_auxiliary_condition_channels=5,
-                        use_time_embedding=True, use_flash_attention=False, **kw)
+                        num_condition_channels=2, use_time_embedding=True,
+                        use_flash_attention=False, **kw)
     plain.to_empty(device=device).load_state_dict(model.state_dict())
     plain.eval()
 
@@ -1746,6 +1769,9 @@ def phase_full_attention(device, earlier):
     launches = counts()
     if launches != (len(sites), 9, 0):
         raise AssertionError(f"launches {launches}, want ({len(sites)}, 9, 0)")
+    launches_wgmma = flash_attention.launches_wgmma  # every call is f32 at D 32
+    if launches_wgmma != len(sites):
+        raise AssertionError(f"launches_wgmma {launches_wgmma}, want {len(sites)}")
     if out.shape != (FULL_ATTENTION_BATCH, IMAGE, IMAGE, 2) or not torch.isfinite(out).all():
         raise AssertionError(f"output {tuple(out.shape)} is not finite or not the shape")
     q, k, v = recorded["q"], recorded["k"], recorded["v"]
@@ -1753,12 +1779,15 @@ def phase_full_attention(device, earlier):
     nk = k.shape[1]
     if (bh, nq, nk, d) != (4 * FULL_ATTENTION_BATCH, IMAGE * IMAGE, IMAGE * IMAGE + 4, 32):
         raise AssertionError(f"stage-0 call at {(bh, nq, nk, d)}")
+    kernel = route(q.dtype, d)
     # the plain version's scores for all of this call would take
-    # BH Nq Nk 4 bytes (137 GB); on the first rows over every key it is
-    # exact for those rows
+    # BH Nq Nk 4 bytes (137 GB); on the first and the last rows over every
+    # key it is exact for those rows
     want = flash_attention_reference(q[:, :STAGE0_ROWS], k, v)
     got = recorded["out"][:, :STAGE0_ROWS]
-    err_stage0 = max_abs_err(got, want)
+    want_last = flash_attention_reference(q[:, -STAGE0_ROWS:], k, v)
+    got_last = recorded["out"][:, -STAGE0_ROWS:]
+    err_stage0 = max(max_abs_err(got, want), max_abs_err(got_last, want_last))
 
     def library():
         # the memory-efficient backend: O(N D) memory (the math backend's
@@ -1773,7 +1802,8 @@ def phase_full_attention(device, earlier):
         err_earlier = max_abs_err(fns["earlier"]()[:, :STAGE0_ROWS], want)
         log(f"phase 12: stage-0 call, earlier kernel: max abs err vs plain {err_earlier:.3e}")
     torch.testing.assert_close(got, want, **F32_TOL)
-    del want, got
+    torch.testing.assert_close(got_last, want_last, **F32_TOL)
+    del want, got, want_last, got_last
     recorded.clear()
     torch.cuda.empty_cache()
 
@@ -1784,10 +1814,11 @@ def phase_full_attention(device, earlier):
     ops = 4 * bh * nq * nk * d
     bound, bound_by = bound_ms(4 * (2 * bh * nq * d + 2 * bh * nk * d), ops, TF32_TENSOR_FLOPS)
     log(f"phase 12: {IMAGE} px, batch {FULL_ATTENTION_BATCH}, convolutions at {conv}: launches "
-        f"(flash, GroupNorm+SiLU forward, backward) {launches}; forward {forward_ms:.3f} ms of "
-        f"device time")
-    log(f"phase 12: stage-0 flash call {(bh, nq, nk, d)} f32: {stage0_ms:.4f} ms; max abs err "
-        f"vs plain on {STAGE0_ROWS} query rows {err_stage0:.3e} (tolerance {F32_TOL}); bound "
+        f"(flash, GroupNorm+SiLU forward, backward) {launches}, {launches_wgmma} of the flash "
+        f"launches on the wgmma route; forward {forward_ms:.3f} ms of device time")
+    log(f"phase 12: stage-0 flash call {(bh, nq, nk, d)} f32, {kernel} route: {stage0_ms:.4f} "
+        f"ms; max abs err vs plain on the first and the last {STAGE0_ROWS} query rows "
+        f"{err_stage0:.3e} (tolerance {F32_TOL}); bound "
         f"{bound:.4f} ms ({bound_by}: {ops / 1e12:.3f} TFLOP at the TF32 tensor-core peak), "
         f"the 3xTF32 floor {3 * ops / TF32_TENSOR_FLOPS * 1e3:.4f} ms; {stage0_ms / bound:.2f}x "
         f"the bound" + (f"; earlier kernel {stage0['earlier']:.4f} ms" if earlier else ""))
@@ -1795,7 +1826,8 @@ def phase_full_attention(device, earlier):
         f"{library_ms:.4f} ms; max abs err vs plain on {STAGE0_ROWS} query rows {err_library:.3e}")
     del model, q, k, v
     torch.cuda.empty_cache()
-    return dict(launches_full_attention=launches[0], max_abs_err_stage0=err_stage0,
+    return dict(launches_full_attention=launches[0],
+                launches_wgmma_full_attention=launches_wgmma, max_abs_err_stage0=err_stage0,
                 ms_stage0=stage0_ms, bound_ms_stage0=bound, library_ms_stage0=library_ms,
                 **({"earlier_ms_stage0": stage0["earlier"]} if earlier else {}))
 

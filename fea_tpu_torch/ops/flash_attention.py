@@ -9,6 +9,10 @@ tensor the kernel does not take raises.
 The kernel runs both products on the tensor cores: f32 inputs in 3xTF32
 (each operand split into TF32 hi and lo parts, hi*lo + lo*hi + hi*hi summed
 in f32), bf16 inputs as bf16 products with P split into bf16 hi and lo.
+`route` picks one of two kernels per call from its dtype and head dim:
+"wgmma" for f32 at D 32, which splits K and V into TF32 once per call (into
+scratch memory) and runs both products with Hopper's wgmma, and "mma_sync"
+for bf16 and for D 64 and 128.
 """
 
 import ctypes
@@ -49,9 +53,22 @@ def _library():
         ctypes.c_float, ctypes.c_void_p,
     ]
     lib.fea_flash_attention_fwd.restype = ctypes.c_int
+    lib.fea_flash_attention_fwd_wgmma.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.fea_flash_attention_fwd_wgmma.restype = ctypes.c_int
+    lib.fea_flash_attention_wgmma_image_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fea_flash_attention_wgmma_image_floats.restype = ctypes.c_longlong
     lib.fea_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fea_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def route(dtype, d: int) -> str:
+    """The kernel a CUDA call takes: "wgmma" for f32 at head dim 32,
+    "mma_sync" for bf16 and for D 64 and 128."""
+    return "wgmma" if dtype == torch.float32 and d == 32 else "mma_sync"
 
 
 def _check_cuda_inputs(q, k, v):
@@ -93,11 +110,42 @@ def _check_cuda_inputs(q, k, v):
         )
 
 
+def _launch(q, k, v, scale: float, wgmma: bool):
+    """One launch of the wgmma kernel (f32 at D 32 only) or of the mma.sync
+    kernel on checked CUDA tensors; the output."""
+    bh, nq, d = q.shape
+    nk = k.shape[1]
+    out = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if wgmma:
+            # K and V as TF32 hi and lo tiles, in the layout wgmma reads
+            image = torch.empty(lib.fea_flash_attention_wgmma_image_floats(bh, nk),
+                                dtype=torch.float32, device=q.device)
+            err = lib.fea_flash_attention_fwd_wgmma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), image.data_ptr(),
+                bh, nq, nk, scale, stream,
+            )
+        else:
+            err = lib.fea_flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                bh, nq, nk, d, int(q.dtype == torch.bfloat16), scale, stream,
+            )
+    if err != 0:
+        raise RuntimeError(
+            "flash attention kernel launch failed: "
+            + lib.fea_cuda_error_string(err).decode()
+        )
+    return out
+
+
 def flash_attention(q, k, v, scale: float = None):
     """softmax(q k^T * scale) v for q (BH, Nq, D), k/v (BH, Nk, D); Nk may
     differ from Nq (memory-KV slots). CUDA tensors go through the CUDA
-    kernel, and `flash_attention.launches` counts its launches (a launch
-    recorded in a CUDA graph at each replay); CPU tensors go through the
+    kernel that `route` picks; `flash_attention.launches` counts the
+    launches (a launch recorded in a CUDA graph at each replay), and
+    `launches_wgmma` those of the "wgmma" kernel. CPU tensors go through the
     plain version. The kernel is forward only: on CUDA tensors that
     require grad, with grad enabled, it raises."""
     if q.device.type == k.device.type == v.device.type == "cpu":
@@ -105,22 +153,13 @@ def flash_attention(q, k, v, scale: float = None):
     _check_cuda_inputs(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    bh, nq, d = q.shape
-    out = torch.empty_like(q)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.fea_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bh, nq, k.shape[1], d, int(q.dtype == torch.bfloat16), scale,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "flash attention kernel launch failed: "
-            + lib.fea_cuda_error_string(err).decode()
-        )
+    wgmma = route(q.dtype, q.shape[-1]) == "wgmma"
+    out = _launch(q, k, v, scale, wgmma)
     graphs.count(flash_attention)
+    if wgmma:
+        graphs.count(flash_attention, "launches_wgmma")
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_wgmma = 0
