@@ -348,6 +348,13 @@ def earlier_module(earlier, name):
     return importlib.import_module(f"{earlier.__name__}.{name}")
 
 
+def library_build(module):
+    """The function that builds the native library of the kernel module
+    `module`: its binder's `build` (`ops/_build.py` `bind`), or the module's
+    own `build` in a checkout from before the binder."""
+    return getattr(module, "LIBRARY", module).build
+
+
 def earlier_band(earlier):
     """The band kernel of the ops package `earlier` (`load_ops`), as fn(vals,
     cols, u, y, widths): that checkout's own wrapper, given the width
@@ -3337,10 +3344,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    from fea_tpu_torch.ops.band import build as build_band
-    from fea_tpu_torch.ops.cg import build as build_cg
-    from fea_tpu_torch.ops.flash_attention import build as build_flash
-    from fea_tpu_torch.ops.fused_norm import build as build_group_norm
+    from fea_tpu_torch.ops import band, cg, flash_attention, fused_norm
     from fea_tpu_torch.utils.device import cuda_device
     from fea_tpu_torch.utils.precision import DEFAULT_CONV
 
@@ -3351,11 +3355,11 @@ def main():
         f"(fea_tpu_torch/utils/precision.py) unless a check asks for ieee; matmuls with "
         f"torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
 
-    builds = [build_flash, build_group_norm, build_cg, build_band]
+    builds = [library_build(m) for m in (flash_attention, fused_norm, cg, band)]
     earlier = None
     if args.against:
         earlier = load_ops(args.against)
-        builds += [earlier_module(earlier, name).build
+        builds += [library_build(earlier_module(earlier, name))
                    for name in ("flash_attention", "fused_norm", "cg", "band")]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, started together

@@ -16,7 +16,7 @@ K·u as a *dense banded* product instead of element gathers:
     CPU's route; on the card the flat chunk compacts S once per solve to
     its non-zeros (`band_tables`, sliced ELL over planar rows) and the CG
     loop reads only those (`ops.band.band_matvec`; plain version
-    `band_matvec_reference`).
+    `ops.band.band_matvec_reference`).
 
 The permutation lives inside the solver scaffold: conditions are built on
 the original mesh, per-condition arrays are permuted on the host at
@@ -31,6 +31,7 @@ solve's entry points refuse TF32).
 import numpy as np
 import torch
 
+from ..ops.band import ELL_ROWS
 from .assembly import scatter_sum
 
 # Rows per band block; every node bucket is a multiple of 64 so 2*Nb is
@@ -154,17 +155,12 @@ def banded_matvec(S, x, win_idx, hb: int):
     return y.flatten(-2)
 
 
-# Rows of a slice of the compacted band: the rows a warp of the kernel
-# (csrc/band_matvec.cu) walks together, one thread a row.
-ELL_ROWS = 32
-
-
 def band_tables(S, band_idx, hb: int, free=None):
-    """The band's non-zeros as `ops.band.band_matvec` reads them: K's
-    structure marked once from the shared plan `band_idx` (36, M) (every
-    lane's element blocks land in the same slots; the repeats of a slot,
-    the ghost triangles' at node 0 among them, merge), each lane's values
-    gathered from S (C, nblk, R, W).
+    """The band's non-zeros in `ops.band`'s layout, as its `band_matvec`
+    reads them: K's structure marked once from the shared plan `band_idx`
+    (36, M) (every lane's element blocks land in the same slots; the
+    repeats of a slot, the ghost triangles' at node 0 among them, merge),
+    each lane's values gathered from S (C, nblk, R, W).
 
     Rows and columns are planar dofs (comp * n + node for n = n_dofs / 2).
     A row's slots hold its columns in ascending interleaved order, padded
@@ -211,18 +207,6 @@ def slice_widths(cols):
     cols' device with no host read. `ops.band.band_matvec` reads each
     slice this far and no further."""
     return (cols >= 0).sum(dim=1).amax(dim=-1).to(torch.int32)
-
-
-def band_matvec_reference(vals, cols, u, y, widths=None):
-    """y = the compacted band (`band_tables`) times u, on planar (C,
-    n_dofs) vectors: the plain version of `ops.band.band_matvec`, with its
-    arguments, as torch gathers and a sum over every slot (the width
-    table, where given, is not read). A pad's column -1 reads the zero
-    appended to u."""
-    C, n_dofs = u.shape
-    padded = torch.cat([u, u.new_zeros((C, 1))], dim=-1)
-    rows = (vals * padded[:, cols]).sum(dim=-2)  # (C, n_slices, ELL_ROWS)
-    y.copy_(rows.reshape(C, -1)[:, :n_dofs])
 
 
 def band_block_diagonal(S, hb: int, block: int):

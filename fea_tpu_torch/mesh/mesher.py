@@ -22,7 +22,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..geometry.polygon import Polygon
-from ..ops._build import build_host_library
+from ..ops._build import bind
 
 
 class MeshError(Exception):
@@ -75,39 +75,14 @@ class Mesh:
         return np.where(cross < tol)[0]
 
 
-_lib = None
-
-
-def _get_lib():
-    """The CDT library, built on first use; a failed build raises."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build_host_library("fea_cdt", ["cdt.cpp"])))
-    lib.fea_triangulate.restype = ctypes.c_int
-    lib.fea_triangulate.argtypes = [
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.c_int,
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.POINTER(ctypes.c_int),
-        ctypes.c_int,
-        ctypes.c_double,
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int),
-        ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int),
-    ]
-    lib.fea_hinge_singular.restype = ctypes.c_int
-    lib.fea_hinge_singular.argtypes = [
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.c_int,
-        ctypes.c_int,
-        ctypes.POINTER(ctypes.c_uint8),
-    ]
-    _lib = lib
-    return _lib
+_int_p, _double_p = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double)
+LIBRARY = bind("fea_cdt", ["cdt.cpp"], {
+    "fea_triangulate": ([_double_p, ctypes.c_int, _double_p, _int_p, ctypes.c_int,
+                         ctypes.c_double, _double_p, ctypes.c_int, _int_p, ctypes.c_int,
+                         _int_p, _int_p], ctypes.c_int),
+    "fea_hinge_singular": ([ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_uint8)], ctypes.c_int),
+}, host=True)
 
 
 def hinge_singular(triangles, fixed_mask) -> bool:
@@ -115,7 +90,7 @@ def hinge_singular(triangles, fixed_mask) -> bool:
     (cdt.cpp fea_hinge_singular): True if some cut vertex separates a
     sub-body carrying no Dirichlet-fixed node (zero-energy rotation
     about the hinge). Bad input (an index out of range) raises."""
-    lib = _get_lib()
+    lib = LIBRARY.lib
     tris = np.ascontiguousarray(triangles, dtype=np.int32)
     fixed = np.ascontiguousarray(fixed_mask, dtype=np.uint8)
     m = len(tris)
@@ -159,7 +134,7 @@ def triangulate(
 ) -> Mesh:
     """Mesh a polygon-with-holes at target edge length `mesh_size`."""
     holes = holes or []
-    lib = _get_lib()
+    lib = LIBRARY.lib
 
     ext = np.ascontiguousarray(exterior, dtype=np.float64)
     hole_arr = (

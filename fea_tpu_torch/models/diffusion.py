@@ -8,8 +8,8 @@ float32, as in fea_tpu.
 With `self_condition` the model also takes an estimate of x0 (Chen, Zhang
 & Hinton 2022, as lucidrains' GaussianDiffusion(self_condition=True)
 feeds it): the sampler hands each step the last step's clamped x0, and
-zeros at the first; the loss, on one coin a batch, first estimates x0
-with a forward under no_grad and hands it on detached. fea_tpu stores the
+zeros at the first; the loss, on a coin its caller draws once a batch,
+first estimates x0 with a forward under no_grad and hands it on detached. fea_tpu stores the
 setting and reads it nowhere.
 """
 
@@ -127,14 +127,16 @@ class GaussianDiffusion:
         [0, timesteps) and the noise (x0's shape) are drawn from `generator`
         unless given. The target is the noise ('pred_noise') or x0.
 
-        With self_condition, a coin uniform over [0, 1), drawn from
-        `generator` after t and the noise unless given (the host waits on
-        a generator of the card's; DiffusionTrainer draws it on the host):
-        under 0.5 a forward under no_grad estimates x0 (unclamped, as
-        lucidrains' model_predictions gives it to its loss) and the graded
-        forward takes it detached; else the graded forward takes zeros."""
+        With self_condition the caller passes `coin`, uniform over [0, 1)
+        (DiffusionTrainer draws it on the host; the loss draws none, so the
+        host never waits on the card for it): under 0.5 a forward under
+        no_grad estimates x0 (unclamped, as lucidrains' model_predictions
+        gives it to its loss) and the graded forward takes it detached;
+        else the graded forward takes zeros."""
         if generator is None and (t is None or noise is None):
             raise ValueError("loss needs a generator or both t and the noise")
+        if self.self_condition and coin is None:
+            raise ValueError("a self-conditioned loss takes the coin (coin=)")
         b = x0.shape[0]
         if t is None:
             t = torch.randint(
@@ -148,10 +150,6 @@ class GaussianDiffusion:
         if not self.self_condition:
             pred = self.model(x_t, condition, time=t.float())
         else:
-            if coin is None:
-                if generator is None:
-                    raise ValueError("a self-conditioned loss needs a generator or the coin")
-                coin = float(torch.rand((), generator=generator, device=x0.device))
             x_self = None
             if coin < 0.5:
                 with torch.no_grad(), span("train.self_cond"):

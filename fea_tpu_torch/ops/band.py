@@ -5,10 +5,11 @@ version.
 fea_tpu applies K as a dense block-shifted band, one batched product a CG
 iteration (fea_tpu/fem/banded.py:161 `banded_matvec`). On the card the
 chunk's operator reads only K's non-zeros, compacted once per solve by
-`fem.banded.band_tables`: y = vals (C, n_slices, slots, 32) times u (C,
-n_dofs) over the shared planar columns cols (n_slices, slots, 32), the free
-masks folded into the values; the kernel reads each slice up to its widest
-row, from the tables' width table widths (n_slices,).
+`fem.banded.band_tables` into the sliced-ELL layout this module owns: y =
+vals (C, n_slices, slots, ELL_ROWS) times u (C, n_dofs) over the shared
+planar columns cols (n_slices, slots, ELL_ROWS), the free masks folded into
+the values; the kernel reads each slice up to its widest row, from the
+tables' width table widths (n_slices,).
 
 `band_matvec` launches the kernel for CUDA tensors and raises on what the
 kernel does not take (a dtype other than float32 / float64, another device,
@@ -21,19 +22,25 @@ counts at each replay of it.
 """
 
 import ctypes
-import functools
-from pathlib import Path
 
 import torch
 
-from ..fem.banded import ELL_ROWS, band_matvec_reference
-from . import cg, graphs
-from ._build import build_library
+from . import graphs
+from ._build import bind, check_aligned, check_tensors
 
+DTYPES = (torch.float32, torch.float64)
+# Rows of a slice of the compacted band: the rows a warp of the kernel
+# (csrc/band_matvec.cu) walks together, one thread a row.
+ELL_ROWS = 32
 # a block of the kernel: SLICES slices of ELL_ROWS rows for LANES lanes,
 # staged in shared memory up to MAX_SHARED bytes (csrc/band_matvec.cu)
 SLICES, LANES = 4, 4
 MAX_SHARED = 200 * 1024
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIBRARY = bind("fea_band_matvec", ["band_matvec.cu"], {
+    "fea_band_matvec": ([_i, _p, _p, _p, _p, _p, _i, _i, _i, _p], _i),
+}, load_symbol="fea_band_load")
 
 
 def shared_bytes(slots: int, dtype) -> int:
@@ -42,38 +49,16 @@ def shared_bytes(slots: int, dtype) -> int:
     return SLICES * slots * ELL_ROWS * (LANES * (torch.finfo(dtype).bits // 8) + 4)
 
 
-def build() -> Path:
-    """Compile the kernel's library (at first use); its path."""
-    return build_library("fea_band_matvec", ["band_matvec.cu"])
-
-
-@functools.cache
-def _library():
-    lib = ctypes.CDLL(str(build()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fea_band_matvec.argtypes = [i, p, p, p, p, p, i, i, i, p]
-    lib.fea_band_matvec.restype = i
-    lib.fea_band_load.argtypes = []
-    lib.fea_band_load.restype = i
-    lib.fea_cuda_error_string.argtypes = [i]
-    lib.fea_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(f"band kernel {what} failed: " + _library().fea_cuda_error_string(err).decode())
-
-
-@functools.cache
-def load(index: int):
-    """Build the library and load the kernel into device `index`'s context
-    (before a capture: a kernel that loaded lazily at its first launch
-    would load while the graph is recorded)."""
-    lib = _library()
-    with torch.cuda.device(index):
-        _raise_on(lib.fea_band_load(), "loading")
-    return lib
+def band_matvec_reference(vals, cols, u, y, widths=None):
+    """y = the compacted band (`fem.banded.band_tables`) times u, on planar
+    (C, n_dofs) vectors: the plain version of `band_matvec`, with its
+    arguments, as torch gathers and a sum over every slot (the width
+    table, where given, is not read). A pad's column -1 reads the zero
+    appended to u."""
+    C, n_dofs = u.shape
+    padded = torch.cat([u, u.new_zeros((C, 1))], dim=-1)
+    rows = (vals * padded[:, cols]).sum(dim=-2)  # (C, n_slices, ELL_ROWS)
+    y.copy_(rows.reshape(C, -1)[:, :n_dofs])
 
 
 def band_matvec(vals, cols, u, y, widths):
@@ -86,21 +71,21 @@ def band_matvec(vals, cols, u, y, widths):
     C, n_dofs = u.shape
     slots = cols.shape[1]
     n_slices = -(-n_dofs // ELL_ROWS)
-    cg._check(device, dtype, {
+    check_tensors("band_matvec", device, dtype, DTYPES, {
         "vals": (vals, None, (C, n_slices, slots, ELL_ROWS)),
         "cols": (cols, torch.int32, (n_slices, slots, ELL_ROWS)),
         "widths": (widths, torch.int32, (n_slices,)),
         "u": (u, None, (C, n_dofs)), "y": (y, None, (C, n_dofs))})
-    cg._check_aligned("band_matvec", {"vals": vals, "cols": cols})
+    check_aligned("band_matvec", {"vals": vals, "cols": cols})
     if shared_bytes(slots, dtype) > MAX_SHARED:
         raise ValueError(f"band_matvec: rows of {slots} slots take {shared_bytes(slots, dtype)} "
                          f"bytes of a block's shared memory, over its {MAX_SHARED}")
-    lib = load(device.index or 0)
+    lib = LIBRARY.loaded(device.index or 0)
     with torch.cuda.device(device):
         err = lib.fea_band_matvec(int(dtype == torch.float64), vals.data_ptr(), cols.data_ptr(),
                                   widths.data_ptr(), u.data_ptr(), y.data_ptr(), C, n_dofs, slots,
                                   torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(err, "launch")
+    LIBRARY.check(err, "band_matvec launch")
     graphs.count(band_matvec)
 
 

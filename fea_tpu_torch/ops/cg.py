@@ -29,14 +29,12 @@ the tensors lie on the CPU. Every kernel launch adds one to its wrapper's
 
 import copy
 import ctypes
-import functools
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from . import graphs
-from ._build import build_library
+from ._build import ALIGN, bind, check_aligned, check_tensors
 
 DTYPES = (torch.float32, torch.float64)
 THREADS = 256  # a block of every kernel (csrc/cg_segmented.cu)
@@ -70,49 +68,15 @@ JACOBI_NODES = 512
 RESTRICT_WARPS = 2
 RESTRICT_LANES = 8
 JACOBI_FIRST = False
-ALIGN = 16  # bytes: the alignment of every vector the CG kernels and band_matvec load
 
-
-def build() -> Path:
-    """Compile the kernels' library (at first use); its path."""
-    return build_library("fea_cg_segmented", ["cg_segmented.cu"])
-
-
-@functools.cache
-def _library():
-    lib = ctypes.CDLL(str(build()))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    signatures = {
-        "fea_cg_alpha": [i] + [p] * 11 + [i] * 8 + [p],
-        "fea_cg_update_xr": [i] + [p] * 6 + [i] * 6 + [p],
-        "fea_cg_jacobi_restrict": [i] + [p] * 6 + [i, ll] + [i] * 7 + [p],
-        "fea_cg_prolong_dots": [i] + [p] * 7 + [i] + [p] * 8 + [i] * 7 + [p],
-        "fea_cg_update_p": [i] + [p] * 5 + [i] * 6 + [p],
-    }
-    for name, argtypes in signatures.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = i
-    lib.fea_cg_load.argtypes = []
-    lib.fea_cg_load.restype = i
-    lib.fea_cuda_error_string.argtypes = [i]
-    lib.fea_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def load(index: int):
-    """Build the library and load every kernel into device `index`'s
-    context (before a capture: a kernel that loaded lazily at its first
-    launch would load while the graph is recorded)."""
-    lib = _library()
-    with torch.cuda.device(index):
-        _raise_on(lib.fea_cg_load(), "loading the kernels")
-    return lib
-
-
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(f"CG kernel {what} failed: " + _library().fea_cuda_error_string(err).decode())
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIBRARY = bind("fea_cg_segmented", ["cg_segmented.cu"], {
+    "fea_cg_alpha": ([_i] + [_p] * 11 + [_i] * 8 + [_p], _i),
+    "fea_cg_update_xr": ([_i] + [_p] * 6 + [_i] * 6 + [_p], _i),
+    "fea_cg_jacobi_restrict": ([_i] + [_p] * 6 + [_i, _ll] + [_i] * 7 + [_p], _i),
+    "fea_cg_prolong_dots": ([_i] + [_p] * 7 + [_i] + [_p] * 8 + [_i] * 7 + [_p], _i),
+    "fea_cg_update_p": ([_i] + [_p] * 5 + [_i] * 6 + [_p], _i),
+}, load_symbol="fea_cg_load")
 
 
 def prolong_plan(seg_nodes: int, max_cluster: int = PROLONG_CLUSTER):
@@ -178,15 +142,6 @@ def vector_width(seg_nodes: int, dtype) -> int:
     else one (a ragged node count)."""
     vec = ALIGN // (torch.finfo(dtype).bits // 8)
     return vec if seg_nodes % vec == 0 else 1
-
-
-def _check_aligned(kernel, named):
-    """Raises unless every tensor of `named` ({name: tensor or None})
-    starts on a 16-byte boundary (the kernel's vector loads)."""
-    for name, t in named.items():
-        if t is not None and t.data_ptr() % ALIGN:
-            raise ValueError(f"{name}: {kernel} takes tensors that start on a {ALIGN}-byte "
-                             f"boundary; got an offset of {t.data_ptr() % ALIGN} bytes")
 
 
 # ---- the loop's state ---------------------------------------------------
@@ -266,26 +221,6 @@ class SegmentedState:
 # ---- checks of the CUDA route -------------------------------------------
 
 
-def _check(device, dtype, named):
-    """Raises unless every tensor of `named` ({name: (tensor, dtype or
-    None for `dtype`, shape)}; a None tensor is skipped) lies on `device`,
-    contiguous, of its dtype and shape."""
-    if device.type != "cuda":
-        raise ValueError(f"the CG loop's kernels take CUDA tensors; got {device}")
-    if dtype not in DTYPES:
-        raise TypeError(f"the CG loop's kernels take float32 or float64; got {dtype}")
-    for name, (t, dt, shape) in named.items():
-        if t is None:
-            continue
-        want = dtype if dt is None else dt
-        if t.device != device or t.dtype != want or tuple(t.shape) != tuple(shape) \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: the CG loop's kernels take a contiguous {want} {tuple(shape)} on {device}; got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-                + ("" if t.is_contiguous() else " (not contiguous)"))
-
-
 def _state_tensors(state, *names):
     L, P = state.k.shape[0], state.P
     shapes = {"x": (L, 2 * P * state.Ns), "r": (L, 2 * P * state.Ns), "p": (L, 2 * P * state.Ns),
@@ -312,7 +247,7 @@ def capture(fn, warmup, device) -> graphs.CapturedBlock:
     """`graphs.capture` of a block of loop bodies, after the CG kernels
     were loaded into `device`'s context (a kernel that loaded lazily at its
     first launch would load while the graph is recorded)."""
-    load(device.index or 0)
+    LIBRARY.loaded(device.index or 0)
     return graphs.capture(fn, warmup, device)
 
 
@@ -334,15 +269,15 @@ def cg_alpha_reference(state, Ap):
 def cg_alpha(state, Ap):
     if state.x.device.type == "cpu":
         return cg_alpha_reference(state, Ap)
-    _check(state.x.device, state.x.dtype, {
+    check_tensors("cg_alpha", state.x.device, state.x.dtype, DTYPES, {
         "Ap": (Ap, None, state.p.shape),
         **_state_tensors(state, "p", "rz", "r2", "atol2", "stall", "active", "k", "alpha", "run",
                          "lane")})
     vec = vector_width(state.Ns, state.x.dtype)
     if vec > 1:
-        _check_aligned("cg_alpha", {"state.p": state.p, "Ap": Ap})
+        check_aligned("cg_alpha", {"state.p": state.p, "Ap": Ap})
     cluster, span = alpha_plan(state.Ns)
-    lib = load(state.x.device.index or 0)
+    lib = LIBRARY.loaded(state.x.device.index or 0)
     with torch.cuda.device(state.x.device):
         err = lib.fea_cg_alpha(
             int(state.x.dtype == torch.float64), *map(_ptr, (
@@ -350,7 +285,7 @@ def cg_alpha(state, Ap):
                 state.alpha, state.run, state.lane)),
             state.k.shape[0], state.P, state.Ns, cluster, span, vec, state.max_iters,
             state.stall_limit, _stream(state.x.device))
-    _raise_on(err, "cg_alpha launch")
+    LIBRARY.check(err, "cg_alpha launch")
     graphs.count(cg_alpha)
 
 
@@ -371,20 +306,20 @@ def cg_update_xr_reference(state, Ap):
 def cg_update_xr(state, Ap):
     if state.x.device.type == "cpu":
         return cg_update_xr_reference(state, Ap)
-    _check(state.x.device, state.x.dtype, {
+    check_tensors("cg_update_xr", state.x.device, state.x.dtype, DTYPES, {
         "Ap": (Ap, None, state.p.shape), **_state_tensors(state, "x", "r", "p", "alpha", "lane")})
     vec = vector_width(state.Ns, state.x.dtype)
     if vec > 1:
-        _check_aligned("cg_update_xr", {"state.x": state.x, "state.r": state.r,
+        check_aligned("cg_update_xr", {"state.x": state.x, "state.r": state.r,
                                         "state.p": state.p, "Ap": Ap})
     blocks, span = update_xr_plan(state.Ns)
-    lib = load(state.x.device.index or 0)
+    lib = LIBRARY.loaded(state.x.device.index or 0)
     with torch.cuda.device(state.x.device):
         err = lib.fea_cg_update_xr(
             int(state.x.dtype == torch.float64),
             *map(_ptr, (state.x, state.r, state.p, Ap, state.alpha, state.lane)),
             state.k.shape[0], state.P, state.Ns, blocks, span, vec, _stream(state.x.device))
-    _raise_on(err, "cg_update_xr launch")
+    LIBRARY.check(err, "cg_update_xr launch")
     graphs.count(cg_update_xr)
 
 
@@ -415,7 +350,7 @@ def jacobi_restrict(r, block_inv, arms, members, zj, rc):
         return jacobi_restrict_reference(r, block_inv, arms, members, zj, rc)
     L, PN = r.shape[0], r.shape[1] // 2
     NA, W = (0, 0) if members is None else tuple(members.shape)
-    _check(r.device, r.dtype, {
+    check_tensors("jacobi_restrict", r.device, r.dtype, DTYPES, {
         "r": (r, None, (L, 2 * PN)), "block_inv": (block_inv, None, (L, 2, 2, PN)),
         "zj": (zj if block_inv is not None else None, None, (L, 2 * PN)),
         "arms": (arms if members is not None else None, None, (PN, 2)),
@@ -425,15 +360,15 @@ def jacobi_restrict(r, block_inv, arms, members, zj, rc):
         raise ValueError("jacobi_restrict: block_inv goes with zj, members with arms and rc")
     vec = vector_width(PN, r.dtype) if block_inv is not None else 1
     if vec > 1:
-        _check_aligned("jacobi_restrict", {"r": r, "block_inv": block_inv, "zj": zj})
+        check_aligned("jacobi_restrict", {"r": r, "block_inv": block_inv, "zj": zj})
     plan = restrict_plan(L)
-    lib = load(r.device.index or 0)
+    lib = LIBRARY.loaded(r.device.index or 0)
     with torch.cuda.device(r.device):
         err = lib.fea_cg_jacobi_restrict(
             int(r.dtype == torch.float64), *map(_ptr, (r, block_inv, arms, members, zj, rc)),
             L, PN, NA, W, plan.span, vec, plan.warps, plan.lanes, int(plan.jacobi_first),
             _stream(r.device))
-    _raise_on(err, "jacobi_restrict launch")
+    LIBRARY.check(err, "jacobi_restrict launch")
     graphs.count(jacobi_restrict)
 
 
@@ -501,17 +436,17 @@ def prolong_dots(zj, zc, agg, arms, free, z, n_seg, state=None):
             raise ValueError("prolong_dots with the state writes state.z, over the state's segments")
         named.update(_state_tensors(state, "r", "rz", "r2", "best", "stall", "k", "beta", "run",
                                     "lane"))
-    _check(z.device, z.dtype, named)
+    check_tensors("prolong_dots", z.device, z.dtype, DTYPES, named)
     if ndof % (2 * n_seg):
         raise ValueError(f"{ndof} dofs do not split into {n_seg} segments of two components")
     s = state
     Ns = ndof // (2 * n_seg)
     vec = vector_width(Ns, z.dtype)
     if vec > 1:
-        _check_aligned("prolong_dots", {"z": z, "zj": zj, "agg": agg, "arms": arms,
+        check_aligned("prolong_dots", {"z": z, "zj": zj, "agg": agg, "arms": arms,
                                         "free": free, "state.r": None if s is None else s.r})
     cluster, span = prolong_plan(Ns)
-    lib = load(z.device.index or 0)
+    lib = LIBRARY.loaded(z.device.index or 0)
     with torch.cuda.device(z.device):
         err = lib.fea_cg_prolong_dots(
             int(z.dtype == torch.float64),
@@ -520,7 +455,7 @@ def prolong_dots(zj, zc, agg, arms, free, z, n_seg, state=None):
             *map(_ptr, (None,) * 8 if s is None
                  else (s.rz, s.r2, s.best, s.stall, s.k, s.beta, s.run, s.lane)),
             L, n_seg, Ns, cluster, span, vec, NA, _stream(z.device))
-    _raise_on(err, "prolong_dots launch")
+    LIBRARY.check(err, "prolong_dots launch")
     graphs.count(prolong_dots)
 
 
@@ -540,18 +475,19 @@ def cg_update_p_reference(state):
 def cg_update_p(state):
     if state.x.device.type == "cpu":
         return cg_update_p_reference(state)
-    _check(state.x.device, state.x.dtype, _state_tensors(state, "p", "z", "beta", "run", "lane"))
+    check_tensors("cg_update_p", state.x.device, state.x.dtype, DTYPES,
+                  _state_tensors(state, "p", "z", "beta", "run", "lane"))
     vec = vector_width(state.Ns, state.x.dtype)
     if vec > 1:
-        _check_aligned("cg_update_p", {"state.p": state.p, "state.z": state.z})
+        check_aligned("cg_update_p", {"state.p": state.p, "state.z": state.z})
     blocks, span = update_p_plan(state.Ns)
-    lib = load(state.x.device.index or 0)
+    lib = LIBRARY.loaded(state.x.device.index or 0)
     with torch.cuda.device(state.x.device):
         err = lib.fea_cg_update_p(
             int(state.x.dtype == torch.float64),
             *map(_ptr, (state.p, state.z, state.beta, state.run, state.lane)),
             state.k.shape[0], state.P, state.Ns, blocks, span, vec, _stream(state.x.device))
-    _raise_on(err, "cg_update_p launch")
+    LIBRARY.check(err, "cg_update_p launch")
     graphs.count(cg_update_p)
 
 

@@ -16,16 +16,21 @@ for bf16 and for D 64 and 128.
 """
 
 import ctypes
-import functools
-from pathlib import Path
 
 import torch
 
 from . import graphs
-from ._build import build_library
+from ._build import bind, check_aligned, check_contiguous, check_device
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIBRARY = bind("fea_flash_attention", ["flash_attention.cu"], {
+    "fea_flash_attention_fwd": ([_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p], _i),
+    "fea_flash_attention_fwd_wgmma": ([_p, _p, _p, _p, _p, _i, _i, _i, _f, _p], _i),
+    "fea_flash_attention_wgmma_image_floats": ([_i, _i], ctypes.c_longlong),
+})
 
 
 def flash_attention_reference(q, k, v, scale: float = None):
@@ -39,32 +44,6 @@ def flash_attention_reference(q, k, v, scale: float = None):
     return (weights @ v.float()).to(q.dtype)
 
 
-def build() -> Path:
-    """Compile the kernel's library (at first use); its path."""
-    return build_library("fea_flash_attention", ["flash_attention.cu"])
-
-
-@functools.cache
-def _library():
-    lib = ctypes.CDLL(str(build()))
-    lib.fea_flash_attention_fwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
-    ]
-    lib.fea_flash_attention_fwd.restype = ctypes.c_int
-    lib.fea_flash_attention_fwd_wgmma.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-    ]
-    lib.fea_flash_attention_fwd_wgmma.restype = ctypes.c_int
-    lib.fea_flash_attention_wgmma_image_floats.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.fea_flash_attention_wgmma_image_floats.restype = ctypes.c_longlong
-    lib.fea_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.fea_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def route(dtype, d: int) -> str:
     """The kernel a CUDA call takes: "wgmma" for f32 at head dim 32,
     "mma_sync" for bf16 and for D 64 and 128."""
@@ -72,11 +51,8 @@ def route(dtype, d: int) -> str:
 
 
 def _check_cuda_inputs(q, k, v):
-    if not (q.device == k.device == v.device) or q.device.type != "cuda":
-        raise ValueError(
-            f"flash_attention takes q, k, v on one CUDA device or all on the "
-            f"CPU; got {q.device}, {k.device}, {v.device}"
-        )
+    named = {"q": q, "k": k, "v": v}
+    check_device("flash_attention", named)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
         raise TypeError(
             f"flash_attention takes float32 or bfloat16 q, k, v of one dtype; "
@@ -96,11 +72,8 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if min(bh, nq, k.shape[1]) < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention takes contiguous q, k, v")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        # the kernel copies K/V rows in 16-byte pieces
-        raise ValueError("flash_attention takes q, k, v that start on 16-byte boundaries")
+    check_contiguous("flash_attention", named)
+    check_aligned("flash_attention", named)  # the kernel copies K/V rows in 16-byte pieces
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         # the kernel's output has no grad_fn: training would lose the
         # attention's gradients without a word
@@ -116,7 +89,7 @@ def _launch(q, k, v, scale: float, wgmma: bool):
     bh, nq, d = q.shape
     nk = k.shape[1]
     out = torch.empty_like(q)
-    lib = _library()
+    lib = LIBRARY.lib
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if wgmma:
@@ -132,11 +105,7 @@ def _launch(q, k, v, scale: float, wgmma: bool):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 bh, nq, nk, d, int(q.dtype == torch.bfloat16), scale, stream,
             )
-    if err != 0:
-        raise RuntimeError(
-            "flash attention kernel launch failed: "
-            + lib.fea_cuda_error_string(err).decode()
-        )
+    LIBRARY.check(err, "flash_attention wgmma launch" if wgmma else "flash_attention launch")
     return out
 
 

@@ -32,7 +32,6 @@ and dgamma, dbeta in gamma's type.
 import ctypes
 import functools
 import math
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -40,7 +39,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from . import graphs
-from ._build import build_library
+from ._build import bind, check_contiguous, check_device
 
 DTYPES = (torch.float32, torch.bfloat16)
 # blocks to aim for per SM in the partial-sum passes, and the fewest vectors
@@ -59,6 +58,13 @@ CLUSTER_SHARE_BYTES = 64 * 1024
 CLUSTER_HELD_BYTES = 96 * 1024
 STATIC_SHARED_BYTES = 512
 
+_p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+LIBRARY = bind("fea_group_norm_silu", ["group_norm_silu.cu"], {
+    "fea_group_norm_silu_fwd": ([_p] * 7 + [_i] * 10 + [_f, _p], _i),
+    "fea_group_norm_silu_fwd_resident_clusters": ([_i, _i, _i, ctypes.POINTER(_i)], _i),
+    "fea_group_norm_silu_bwd": ([_p] * 12 + [_i] * 7 + [_ll] * 3 + [_i, _p], _i),
+})
+
 
 def group_norm_silu_reference(x, gamma, beta, num_groups: int = 8, eps: float = 1e-6):
     """The plain version: statistics over (B, G, C/G * HW) in f32 from sums
@@ -74,30 +80,6 @@ def group_norm_silu_reference(x, gamma, beta, num_groups: int = 8, eps: float = 
     return F.silu(z).to(x.dtype)
 
 
-def build() -> Path:
-    """Compile the kernels' library (at first use); its path."""
-    return build_library("fea_group_norm_silu", ["group_norm_silu.cu"])
-
-
-@functools.cache
-def _library():
-    lib = ctypes.CDLL(str(build()))
-    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.fea_group_norm_silu_fwd.argtypes = [
-        p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, p,
-    ]
-    lib.fea_group_norm_silu_fwd.restype = i
-    lib.fea_group_norm_silu_fwd_resident_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
-    lib.fea_group_norm_silu_fwd_resident_clusters.restype = i
-    lib.fea_group_norm_silu_bwd.argtypes = [
-        p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, p,
-    ]
-    lib.fea_group_norm_silu_bwd.restype = i
-    lib.fea_cuda_error_string.argtypes = [i]
-    lib.fea_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 @functools.cache
 def _device_limits(index: int):
     """The device's SMs and the shared memory one block may ask for."""
@@ -107,19 +89,11 @@ def _device_limits(index: int):
 
 def _layout(x):
     """Raises unless x is contiguous NCHW (the kernels copy nothing)."""
-    if not x.is_contiguous():
-        raise ValueError(
-            f"group_norm_silu takes contiguous NCHW x; got strides {x.stride()} "
-            f"for shape {tuple(x.shape)}"
-        )
+    check_contiguous("group_norm_silu", {"x": x})
 
 
 def _check_cuda_inputs(x, gamma, beta, num_groups):
-    if not (x.device == gamma.device == beta.device) or x.device.type != "cuda":
-        raise ValueError(
-            f"group_norm_silu takes x, gamma, beta on one CUDA device or all on "
-            f"the CPU; got {x.device}, {gamma.device}, {beta.device}"
-        )
+    check_device("group_norm_silu", {"x": x, "gamma": gamma, "beta": beta})
     if x.dtype not in DTYPES or gamma.dtype not in DTYPES or beta.dtype not in DTYPES:
         raise TypeError(
             f"group_norm_silu takes float32 or bfloat16; got {x.dtype}, "
@@ -244,22 +218,14 @@ def _dy_strides(dy, shape):
     raise ValueError(f"dy strides {dy.stride()} do not flatten H and W of {tuple(shape)}")
 
 
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(
-            f"group_norm_silu {what} kernel launch failed: "
-            + _library().fea_cuda_error_string(err).decode()
-        )
-
-
 def resident_clusters(plan, x) -> int:
     """The clusters of `plan`'s size and shared memory, for x's type, that
     x's device holds at once, as the CUDA runtime counts them."""
     count = ctypes.c_int()
     with torch.cuda.device(x.device):
-        err = _library().fea_group_norm_silu_fwd_resident_clusters(
+        err = LIBRARY.lib.fea_group_norm_silu_fwd_resident_clusters(
             plan.cluster, plan.smem_bytes, int(x.dtype == torch.bfloat16), ctypes.byref(count))
-    _raise_on(err, "forward (cluster occupancy)")
+    LIBRARY.check(err, "group_norm_silu forward's cluster occupancy")
     return count.value
 
 
@@ -276,7 +242,7 @@ def _launch_forward(x, gamma, beta, num_groups, eps, plan):
         # this call's last-block tickets, as the backward takes its own
         tickets = torch.zeros(b, device=x.device, dtype=torch.int32)
     with torch.cuda.device(x.device):
-        err = _library().fea_group_norm_silu_fwd(
+        err = LIBRARY.lib.fea_group_norm_silu_fwd(
             x.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), y.data_ptr(), coef.data_ptr(),
             None if partial is None else partial.data_ptr(),
             None if tickets is None else tickets.data_ptr(),
@@ -284,7 +250,7 @@ def _launch_forward(x, gamma, beta, num_groups, eps, plan):
             plan.vec, int(x.dtype == torch.bfloat16), eps,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _raise_on(err, f"forward ({plan.route})")
+    LIBRARY.check(err, f"group_norm_silu forward launch ({plan.route})")
     return y, coef
 
 
@@ -322,7 +288,7 @@ def _backward(x, gamma, coef, dy, num_groups):
     # allocations, so calls on other streams cannot share them
     tickets = torch.zeros(b + 1, device=x.device, dtype=torch.int32)
     with torch.cuda.device(x.device):
-        err = _library().fea_group_norm_silu_bwd(
+        err = LIBRARY.lib.fea_group_norm_silu_bwd(
             x.data_ptr(), gamma32.data_ptr(), coef.data_ptr(), dy.data_ptr(),
             dx.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
             grads[2 + b].data_ptr(), partial.data_ptr(),
@@ -331,7 +297,7 @@ def _backward(x, gamma, coef, dy, num_groups):
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _raise_on(err, "backward")
+    LIBRARY.check(err, "group_norm_silu backward launch")
     graphs.count(group_norm_silu, "launches_bwd")
     return dx, grads[0], grads[1]
 

@@ -1,5 +1,5 @@
 """The chunk's band operator over K's non-zeros: `fem.banded.band_tables`
-(the compacted band), `band_matvec_reference` (its plain version) and
+(the compacted band), `ops.band.band_matvec_reference` (its plain version) and
 `ops.band.band_matvec` (the hand-written CUDA kernel,
 `csrc/band_matvec.cu`), against fea_tpu's dense band product.
 
@@ -142,7 +142,7 @@ def test_plain_version_matches_fea_tpus_banded_matvec(plates, dtype):
     C = S.shape[0]
     u = torch.from_numpy(np.random.default_rng(3).normal(size=(C, 2 * PN))).to(dtype)
     y = torch.empty_like(u)
-    banded.band_matvec_reference(vals, cols, u, y)
+    band.band_matvec_reference(vals, cols, u, y)
     through_wrapper = torch.empty_like(u)
     band.band_matvec(vals, cols, u, through_wrapper, widths)  # CPU tensors: the plain version
     assert torch.equal(through_wrapper, y)
@@ -220,12 +220,12 @@ def test_a_lane_with_a_nan_element_ends_failed(plates, device):
 def ragged_tables(device, dtype, C=5, n_dofs=1000, slots=7, seed=0):
     """Tables of rows with 0 to `slots` random ascending columns."""
     rng = np.random.default_rng(seed)
-    n_slices = -(-n_dofs // banded.ELL_ROWS)
-    cols = np.full((n_slices * banded.ELL_ROWS, slots), -1, np.int64)
+    n_slices = -(-n_dofs // band.ELL_ROWS)
+    cols = np.full((n_slices * band.ELL_ROWS, slots), -1, np.int64)
     for r in range(n_dofs):
         k = rng.integers(0, slots + 1)
         cols[r, :k] = np.sort(rng.choice(n_dofs, k, replace=False))
-    cols = cols.reshape(n_slices, banded.ELL_ROWS, slots).transpose(0, 2, 1)
+    cols = cols.reshape(n_slices, band.ELL_ROWS, slots).transpose(0, 2, 1)
     vals = rng.normal(size=(C,) + cols.shape) * (cols >= 0)
     return (torch.from_numpy(vals).to(device, dtype),
             torch.from_numpy(np.ascontiguousarray(cols)).to(device, torch.int32))
@@ -296,7 +296,7 @@ def test_kernel_matches_both_plain_versions(shape, dtype):
     band.band_matvec(vals, cols, u, y, widths)
     again = torch.empty_like(u)
     band.band_matvec(vals, cols, u, again, widths)
-    banded.band_matvec_reference(vals, cols, u, plain)
+    band.band_matvec_reference(vals, cols, u, plain)
     torch.cuda.synchronize()
     assert band.band_matvec.launches == before + 2
     assert torch.equal(y, again)  # the same bits

@@ -365,7 +365,7 @@ def test_band_operator_with_its_widths_matches_fea_tpu(plates):
     u = torch.from_numpy(np.random.default_rng(8).normal(size=(C, n_dofs)).astype(np.float32))
     y = op(u).clone()
     want_plain = torch.empty_like(u)
-    banded.band_matvec_reference(op.vals, op.cols, u, want_plain)
+    band.band_matvec_reference(op.vals, op.cols, u, want_plain)
     assert torch.equal(y, want_plain)  # CPU tensors: the plain version
     with jax.enable_x64(False):
         win = jbanded.window_index(2 * PN, hb)
@@ -473,7 +473,7 @@ def test_band_matvec_matches_its_plain_version(shape, dtype):
     y, plain = torch.empty_like(u), torch.empty_like(u)
     before = band.band_matvec.launches
     band.band_matvec(vals, cols, u, y, widths)
-    banded.band_matvec_reference(vals, cols, u, plain)
+    band.band_matvec_reference(vals, cols, u, plain)
     torch.cuda.synchronize()
     assert band.band_matvec.launches == before + 1
     assert tbk.span_error(y, plain) <= tbk.KERNEL_TOL[dtype]

@@ -11,6 +11,9 @@ MODULES = [
     "fea_tpu_torch.ops",
     "fea_tpu_torch.ops.flash_attention",
     "fea_tpu_torch.ops.fused_norm",
+    "fea_tpu_torch.ops.cg",
+    "fea_tpu_torch.ops.band",
+    "fea_tpu_torch.ops.graphs",
     "fea_tpu_torch.ops._build",
     "fea_tpu_torch.models",
     "fea_tpu_torch.models.blocks",

@@ -168,19 +168,25 @@ def test_loss_and_gradients_match_the_reference_on_each_side_of_the_coin(pair, c
 
 
 def test_the_coin_comes_from_the_generator_after_t_and_the_noise(pair):
+    """The self-conditioned loss draws no coin: without `coin=` it raises,
+    with a generator or without. With the coin given, t and then the noise
+    still come from the generator, in that order."""
     program, _ = pair
     x0, cond = draws(6, (B, S, S, 2), (B, S, S, 5))
-    losses = []
-    for _ in range(2):
-        with torch.no_grad():
-            losses.append(float(program.loss(x0, cond, torch.Generator().manual_seed(9))))
     g = torch.Generator().manual_seed(9)
     t = torch.randint(0, T, (B,), generator=g)
     noise = torch.randn(x0.shape, generator=g)
-    coin = float(torch.rand((), generator=g))
+    coin = 0.25  # the estimate's side
+    losses = []
+    for _ in range(2):
+        with torch.no_grad():
+            losses.append(float(program.loss(x0, cond, torch.Generator().manual_seed(9),
+                                             coin=coin)))
     with torch.no_grad():
         want = float(program.loss(x0, cond, t=t, noise=noise, coin=coin))
     assert losses == [want, want]
+    with pytest.raises(ValueError):
+        program.loss(x0, cond, torch.Generator().manual_seed(9))  # a generator, no coin
     with pytest.raises(ValueError):
         program.loss(x0, cond, t=t, noise=noise)  # no generator, no coin
 

@@ -84,12 +84,12 @@ def main():
         print("profile_fdnunet: no CUDA device", file=sys.stderr)
         return 1
     from fea_tpu_torch.models import make_diffusion_model
-    from fea_tpu_torch.ops.flash_attention import build, flash_attention
+    from fea_tpu_torch.ops.flash_attention import LIBRARY, flash_attention
     from fea_tpu_torch.utils.precision import DEFAULT_CONV, model_precision
 
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default
     device = torch.device("cuda")
-    build()
+    LIBRARY.build()
     model = make_diffusion_model(
         image_size=IMAGE, input_dim=64, num_stages=4, timesteps=1000,
         use_flash_attention=True, device=device,

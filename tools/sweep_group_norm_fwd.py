@@ -72,7 +72,7 @@ def main():
     device = torch.device("cuda")
     sms, smem_limit = fused_norm._device_limits(0)
     log(f"{torch.cuda.get_device_name(0)}: {sms} SMs, {smem_limit} bytes of shared memory a block")
-    lib = fused_norm.build()
+    lib = fused_norm.LIBRARY.build()
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "entry function" in line:
             log("  nvcc: " + line.strip())

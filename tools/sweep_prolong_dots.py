@@ -301,7 +301,10 @@ def body_rows(trees, rounds):
     st, A, pre = phase9_chunk()
     states, blocks = {}, {}
     for tree, cg_module in trees.items():
-        cg_module.load(0)  # outside the capture
+        if hasattr(cg_module, "LIBRARY"):  # loaded outside the capture
+            cg_module.LIBRARY.loaded(0)
+        else:  # a checkout from before the binder
+            cg_module.load(0)
         s = states[tree] = chip_smoke.earlier_state(st, cg_module)
 
         def block(s=s):
@@ -372,7 +375,7 @@ def main():
         ops = chip_smoke.load_ops(tree, f"sweep_{name}_fea_tpu_torch")
         trees[name] = chip_smoke.earlier_module(ops, "cg")
     for tree, cg_module in trees.items():
-        lib = cg_module.build()
+        lib = chip_smoke.library_build(cg_module)()
         log(f"{tree}: {lib}")
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
