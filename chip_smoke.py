@@ -8,9 +8,10 @@ the model's f32 convolutions at the port's precision policy
 (fea_tpu_torch/utils/precision.py: tf32), as `python -m fea_tpu_torch`
 runs them, and nothing in this script sets cuDNN's precision for the
 process: a check whose tolerance holds strict f32 runs its model work
-inside model_precision(conv="ieee"). The four kernel libraries (flash
-attention, fused GroupNorm+SiLU, the CG loop, the band operator) are built
-at once, one nvcc each, from fea_tpu_torch/csrc into fea_tpu_torch/_build.
+inside model_precision(conv="ieee"). The five kernel libraries (flash
+attention, fused GroupNorm+SiLU, the CG loop, the band operator, linear
+attention) are built at once, one nvcc each, from fea_tpu_torch/csrc into
+fea_tpu_torch/_build.
 Phase 1: the flash kernel (tensor cores: 3xTF32 for f32, bf16 products
          for bf16) against its plain PyTorch version at the sampler's shape
          (BH 8, Nq 1024, Nk 1028, D 32), a ragged one and stage 2 of full
@@ -22,9 +23,14 @@ Phase 1: the flash kernel (tensor cores: 3xTF32 for f32, bf16 products
 Phase 2: the conditional-DDPM sampler at full width (FDNUNet input_dim 64,
          4 stages, 256 px, flash attention, random seeded weights) answers
          2 requests with 25 denoising steps; the flash kernel must have
-         launched 3 x 25 times and the GroupNorm+SiLU forward 9 x 25; at
+         launched 3 x 25 times, the GroupNorm+SiLU forward 9 x 25 and the
+         linear-attention kernels 6 x 25 (a call: their three launches); at
          ieee, the output must agree with the same sampler run through plain
-         attention, and the card with the CPU on a small input.
+         attention, and the card with the CPU on a small input. Then the
+         linear-attention kernels at stage 0 (b2, 4 heads of 32, 65,536
+         pixels and 4 memory slots) against their plain version (the einsum
+         chain), timed beside it and beside the chain's two cuBLAS products
+         alone (the library yardstick; the port no longer calls them there).
          The GroupNorm+SiLU kernels take contiguous NCHW x and raise on any
          other layout, so phases 2, 3, 5 and 6 running through them show
          that every model path gives them NCHW.
@@ -278,6 +284,16 @@ REDESIGNED = {
                        "table and arms read once, a row of padding leaving after its first load",
     "band_matvec": "each block's slices staged by TMA bulk copies up to their widest row",
 }
+# the linear-attention kernels' design, for the kernels line (written for
+# the port: fea_tpu leaves these einsums to XLA)
+LINEAR_ATTENTION_DESIGN = (
+    "three launches: the pixel reduction split over one wave of blocks, k and v staged by "
+    "16-byte cp.async a tile ahead, p = exp(k - m) with an online max, p v^T in register "
+    "blocks; the chunks' partials and the memory slots combined in a fixed order; q's "
+    "softmax over d and ctx^T q in register blocks, 16-byte stores; strict f32, no atomics")
+# b, heads, h, w of the sampler's stage-0 linear attention at 256 px
+LINEAR_ATTENTION_SHAPE = (2, 4, 256, 256)
+LINEAR_ATTENTION_SLOTS = 4
 
 
 def log(*args):
@@ -327,6 +343,8 @@ def nvidia_smi():
 
 
 EARLIER = "earlier_fea_tpu_torch"  # the package name another checkout's port loads under
+# the modules of fea_tpu_torch.ops that bind a CUDA library
+KERNEL_MODULES = ("flash_attention", "fused_norm", "cg", "band", "linear_attention")
 
 
 def load_ops(tree, package=EARLIER):
@@ -374,8 +392,10 @@ def loop_wrappers():
 
 def reset_counts():
     from fea_tpu_torch.ops import flash_attention, group_norm_silu
+    from fea_tpu_torch.ops.linear_attention import linear_attention
 
     flash_attention.launches = flash_attention.launches_wgmma = 0
+    linear_attention.launches = 0
     group_norm_silu.launches_fwd = group_norm_silu.launches_bwd = 0
     for wrapper in loop_wrappers():
         wrapper.launches = 0
@@ -507,6 +527,7 @@ def phase_sampler(device):
     from fea_tpu_torch.models import make_diffusion_model
     from fea_tpu_torch.models.diffusion import GaussianDiffusion
     from fea_tpu_torch.models.fdnunet import FDNUNet
+    from fea_tpu_torch.ops.linear_attention import linear_attention
     from fea_tpu_torch.utils.precision import model_precision
 
     generator = torch.Generator(device=device).manual_seed(SEED)
@@ -535,10 +556,13 @@ def phase_sampler(device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, gn_fwd, gn_bwd = counts()
-    if (launches, gn_fwd, gn_bwd) != (3 * SAMPLER_STEPS, 9 * SAMPLER_STEPS, 0):
+    linear = linear_attention.launches  # calls, three launches each
+    if (launches, gn_fwd, gn_bwd, linear) != (3 * SAMPLER_STEPS, 9 * SAMPLER_STEPS, 0,
+                                              6 * SAMPLER_STEPS):
         raise AssertionError(
-            f"flash / GroupNorm+SiLU forward / backward launched {launches} / "
-            f"{gn_fwd} / {gn_bwd} times, want {3 * SAMPLER_STEPS} / {9 * SAMPLER_STEPS} / 0"
+            f"flash / GroupNorm+SiLU forward / backward / linear attention launched {launches} "
+            f"/ {gn_fwd} / {gn_bwd} / {linear} times, want {3 * SAMPLER_STEPS} / "
+            f"{9 * SAMPLER_STEPS} / 0 / {6 * SAMPLER_STEPS}"
         )
     if out.shape != (SAMPLER_BATCH, IMAGE, IMAGE, 2) or not torch.isfinite(out).all():
         raise AssertionError(f"sampler output {tuple(out.shape)} is not finite or not the shape")
@@ -546,11 +570,57 @@ def phase_sampler(device):
         f"phase 2: sampler batch {SAMPLER_BATCH}, {SAMPLER_STEPS} steps, convolutions at "
         f"{conv}: {wall * 1e3:.2f} ms per call, {wall * 1e3 / SAMPLER_STEPS:.3f} ms per "
         f"denoising step, {wall * 1e3 / SAMPLER_BATCH:.2f} ms per request; "
-        f"flash launches {launches}, GroupNorm+SiLU forward launches {gn_fwd}"
+        f"flash launches {launches}, GroupNorm+SiLU forward launches {gn_fwd}, "
+        f"linear-attention calls {linear} ({3 * linear} launches, three a call)"
     )
     with model_precision(conv="ieee"):
         check_sampler(diffusion, model, condition, noise, out, device)
-    return launches
+    return launches, dict(linear_attention_stage0(device), launches=3 * linear, calls=linear)
+
+
+def linear_attention_stage0(device):
+    """The linear-attention kernels at LINEAR_ATTENTION_SHAPE against their
+    plain version (the einsum chain), then timed in turns beside it and
+    beside the chain's two cuBLAS products alone, on its softmaxed operands
+    (`library_ms`); the kernels line's entry without its launches."""
+    from fea_tpu_torch.ops.linear_attention import linear_attention, linear_attention_reference
+
+    b, heads, h, w = LINEAR_ATTENTION_SHAPE
+    d, n, slots = 32, h * w, LINEAR_ATTENTION_SLOTS
+    rng = np.random.default_rng(SEED)
+    qkv = torch.from_numpy(rng.normal(size=(b, 3 * heads * d, h, w)).astype(np.float32)).to(device)
+    mem = torch.from_numpy(rng.normal(size=(2, heads, d, slots)).astype(np.float32)).to(device)
+    with torch.no_grad():
+        got = linear_attention(qkv, mem, heads, d)
+        want = linear_attention_reference(qkv, mem, heads, d)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        torch.testing.assert_close(got, want, **F32_TOL)
+        q, k, v = (t.reshape(b, heads, d, n) for t in qkv.chunk(3, dim=1))
+        k = torch.softmax(torch.cat([mem[0].expand(b, -1, -1, -1), k], dim=-1), dim=-1)
+        v = torch.cat([mem[1].expand(b, -1, -1, -1), v], dim=-1)
+        q = torch.softmax(q, dim=-2) * d**-0.5
+        ms = in_turns({
+            "kernel": lambda: linear_attention(qkv, mem, heads, d),
+            "plain": lambda: linear_attention_reference(qkv, mem, heads, d),
+            "library": lambda: torch.einsum("bhde,bhdn->bhen",
+                                            torch.einsum("bhdn,bhen->bhde", k, v), q),
+        }, 20)
+    # q, k and v read once and the output written once; both products
+    nbytes = 4 * 4 * b * heads * d * n
+    ops = 2 * b * heads * d * d * (2 * n + slots)
+    bound, bound_by = bound_ms(nbytes, ops, F32_FLOPS)
+    log(f"phase 2: linear attention {LINEAR_ATTENTION_SHAPE} + {slots} slots: max abs err vs "
+        f"plain {err:.3e} (tolerance {F32_TOL}); kernels {ms['kernel']:.4f} ms, plain "
+        f"{ms['plain']:.4f} ms, the chain's cuBLAS products alone {ms['library']:.4f} ms, "
+        f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+    return {"name": "linear_attention", "route": "cuda",
+            "source": "fea_tpu_torch/csrc/linear_attention.cu",
+            "replaces": "none: fea_tpu/models/attention.py:65-66 leaves the einsums to XLA",
+            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": ms["library"],
+            "library": "the chain's two cuBLAS einsums", "shape": list(LINEAR_ATTENTION_SHAPE),
+            "design": LINEAR_ATTENTION_DESIGN}
 
 
 def check_sampler(diffusion, model, condition, noise, shipped, device):
@@ -3344,7 +3414,6 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    from fea_tpu_torch.ops import band, cg, flash_attention, fused_norm
     from fea_tpu_torch.utils.device import cuda_device
     from fea_tpu_torch.utils.precision import DEFAULT_CONV
 
@@ -3355,17 +3424,20 @@ def main():
         f"(fea_tpu_torch/utils/precision.py) unless a check asks for ieee; matmuls with "
         f"torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
 
-    builds = [library_build(m) for m in (flash_attention, fused_norm, cg, band)]
+    # the kernel modules (the package's `flash_attention` attribute is the
+    # function, so each module by its full name)
+    builds = [library_build(importlib.import_module(f"fea_tpu_torch.ops.{name}"))
+              for name in KERNEL_MODULES]
     earlier = None
     if args.against:
         earlier = load_ops(args.against)
-        builds += [library_build(earlier_module(earlier, name))
-                   for name in ("flash_attention", "fused_norm", "cg", "band")]
+        builds += [library_build(earlier_module(earlier, name)) for name in KERNEL_MODULES
+                   if (Path(args.against) / "fea_tpu_torch" / "ops" / f"{name}.py").exists()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, started together
         libs = list(pool.map(lambda build: build(), builds))
     log(f"set-up: kernels built in {time.perf_counter() - t0:.1f} s")
-    for lib in libs[:4]:
+    for lib in libs[:len(KERNEL_MODULES)]:
         log(f"  {lib}")
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -3426,7 +3498,7 @@ def main():
         err, flash_ms = phase_kernel(device, earlier)
         log(f"phase 1 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        launches = phase_sampler(device)
+        launches, linear_entry = phase_sampler(device)
         log(f"phase 2 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         phase_predictor(device)
@@ -3516,6 +3588,7 @@ def main():
             **gn["bwd"],
             "redesigned": REDESIGNED["group_norm_silu_bwd"],
         },
+        linear_entry,
     ] + [dict(entry, launches=cg_launches[name]) for name, entry in cg_entries.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..ops.linear_attention import linear_attention, linear_attention_reference
 from .blocks import conv1x1
 
 
@@ -28,7 +29,11 @@ class RMSNorm(nn.Module):
 
 class LinearAttention(nn.Module):
     """softmax(q over d) . softmax(k over n) linear attention with learned
-    memory-KV slots, kept as (2, heads, head_dim, mem)."""
+    memory-KV slots, kept as (2, heads, head_dim, mem). The attention between
+    the two convolutions is `ops.linear_attention`'s wrapper where no
+    gradient is needed (its CUDA kernels on the card, as in the sampler; the
+    plain einsum chain on the CPU), else the plain chain, since the kernels
+    have no backward."""
 
     def __init__(
         self, dim: int, num_heads: int = 4, head_dim: int = 32,
@@ -47,23 +52,11 @@ class LinearAttention(nn.Module):
         self.RMSNorm_1 = RMSNorm(dim)
 
     def forward(self, x):
-        b, c, h, w = x.shape
         qkv = self.Conv_0(self.RMSNorm_0(x))
-        # (b, heads, d, n)
-        q, k, v = (
-            t.reshape(b, self.num_heads, self.head_dim, h * w)
-            for t in qkv.chunk(3, dim=1)
-        )
         mem = self.memory_kv
-        k = torch.cat([mem[0].expand(b, -1, -1, -1), k], dim=-1)
-        v = torch.cat([mem[1].expand(b, -1, -1, -1), v], dim=-1)
-
-        q = torch.softmax(q, dim=-2) * (self.head_dim**-0.5)
-        k = torch.softmax(k, dim=-1)
-
-        context = torch.einsum("bhdn,bhen->bhde", k, v)
-        out = torch.einsum("bhde,bhdn->bhen", context, q)
-        out = out.reshape(b, self.num_heads * self.head_dim, h, w)
+        needs_grad = torch.is_grad_enabled() and (qkv.requires_grad or mem.requires_grad)
+        attend = linear_attention_reference if needs_grad else linear_attention
+        out = attend(qkv, mem, self.num_heads, self.head_dim)
         return self.RMSNorm_1(self.Conv_1(out))
 
 
