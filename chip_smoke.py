@@ -201,6 +201,20 @@ Phase 17: the model's precision: the sampler's FDNUNet forward at 256 px,
          and bf16 from ieee (outputs; the step's loss and largest relative
          gradient difference of a module). Raises where tf32 differs by
          more than bf16, or not at all.
+Phase 18: ADM (guided-diffusion's 256 px UNet, fea_tpu_torch/models/adm.py)
+         at its published widths, every parameter drawn from a seed (the
+         ones ADM initializes to zero too): at 64 px, batch 2, one forward
+         at ieee within ADM_IEEE_REL of the benchmark's plain reference
+         (portbench/reference/adm.py, strict f32) and one at the policy's
+         tf32 within the `adm-256-concat` configuration's pred_gap; at 256
+         px, batch 2, one forward: 16 flash launches, all at head dim 64
+         (none on the wgmma route), at the shapes counts/adm.py gives, and
+         43 GroupNorm+SiLU forwards; device ms a forward; flash at each of
+         its D-64 shapes and GroupNorm+SiLU (32 groups, eps 1e-5) at each
+         (channels, pixels) of that forward, against the plain versions
+         within F32_TOL; a 25-step `GaussianDiffusion.sample`, counted from
+         just before it: 400 flash and 1,075 GroupNorm+SiLU launches, 25
+         graph replays, 24 learned-range steps and one final step.
 
 Phases 2, 3, 5, 6, 7, 11, 12, 13 and 14 print the precision the model's
 convolutions ran at, read at every nn.Conv2d by a global module hook over
@@ -215,7 +229,7 @@ checkout's fea_tpu_torch/_build.
 
 The stores (about 7.6 GB at the production count), the checkpoints and
 the datagen trees are written under results/chip_smoke/ and deleted at
-the end. `--only 9,10,11` runs only those phases (any of 1 to 17; the
+the end. `--only 9,10,11` runs only those phases (any of 1 to 18; the
 card's name and power limit after them, no result line; phase 15 prints
 phase 10's plates per hour where 10 runs before it, phase 7 phase 5's ms
 per step).
@@ -3403,12 +3417,183 @@ def phase_precision(device, results):
         "the bf16 route does, in every case, and by more than 0")
 
 
+ADM_SMALL = 64
+ADM_BATCH = 2
+ADM_IEEE_REL = 1e-4  # one f32 forward in other orders, flash's 3xTF32 products
+ADM_GROUPS, ADM_EPS = 32, 1e-5  # ADM's GroupNorm32
+
+
+def phase_adm(device):
+    """Phase 18: ADM at its published widths against the plain reference at
+    64 px; at 256 px its launches and device ms a forward, the flash and
+    GroupNorm+SiLU kernels at every shape that forward gives them against
+    their plain versions, and the launches of a 25-step sample. Returns the
+    kernels line's ADM entries: flash's and GroupNorm+SiLU's (launches a
+    sample, the largest error at ADM's shapes), and the forward's own."""
+    from fea_tpu_torch.models import adm, make_adm_diffusion_model
+    from fea_tpu_torch.models.diffusion import GaussianDiffusion
+    from fea_tpu_torch.models.graphed import GraphedForward
+    from fea_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference, route)
+    from fea_tpu_torch.ops.fused_norm import group_norm_silu, group_norm_silu_reference
+    from fea_tpu_torch.utils.precision import model_precision
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from portbench import harness
+    from portbench.counts import adm as adm_counts
+    from portbench.reference import adm as ref_adm
+    from portbench.reference.fdnunet import strict_f32
+    from portbench.reference.weights import make_weights
+
+    config = harness.load_json(harness.ROOT / "configs" / "adm-256-concat.json")
+    generator = torch.Generator(device=device).manual_seed(SEED + 18)
+    diffusion = make_adm_diffusion_model(IMAGE, device=device, generator=generator)
+    model = diffusion.model.eval()
+    reference = ref_adm.build(config)
+    weights = make_weights(reference, SEED + 18, device)["model"]
+    model.load_state_dict(weights)
+    reference["model"].load_state_dict(weights, assign=True)
+    reference = reference["model"].eval()
+    log(f"phase 18: ADM, {sum(p.numel() for p in model.parameters())} parameters, "
+        f"every one drawn from the seed")
+
+    def inputs(size, seed):
+        rng = np.random.default_rng(seed)
+        x, cond = (torch.from_numpy(rng.normal(size=(ADM_BATCH, size, size, c))
+                                    .astype(np.float32)).to(device) for c in (2, 5))
+        return x, cond, torch.tensor([999.0, 416.0], device=device)
+
+    x, cond, t = inputs(ADM_SMALL, SEED)
+    restore = strict_f32()
+    try:
+        with torch.no_grad():
+            want = reference(x, cond, t)
+    finally:
+        restore()
+    gaps = {}
+    for conv in ("ieee", "tf32"):
+        with torch.no_grad(), model_precision(conv=conv):
+            got = model(x, cond, t)
+        gaps[conv] = rel_err(got, want)
+    limit = config["correct_limits"]["pred_gap"]
+    log(f"phase 18: {ADM_SMALL} px, batch {ADM_BATCH}: against the plain reference (strict "
+        f"f32), max abs diff over max abs: ieee {gaps['ieee']:.3e} (tolerance {ADM_IEEE_REL}), "
+        f"tf32 {gaps['tf32']:.3e} (tolerance {limit}, the configuration's pred_gap)")
+    if gaps["ieee"] > ADM_IEEE_REL or gaps["tf32"] > limit:
+        raise AssertionError(f"ADM and its plain reference differ: {gaps}")
+    del reference, want
+
+    x, cond, t = inputs(IMAGE, SEED + 1)
+    # every GroupNorm+SiLU call's (channels, H W) and flash call's (BH, Nq,
+    # Nk, D), read where ADM calls the two kernels
+    norm_shapes, attention_shapes = set(), []
+    norm, flash = adm.group_norm_silu, adm.flash_attention
+
+    def recording_norm(x, *args):
+        norm_shapes.add((x.shape[1], x[0, 0].numel()))
+        return norm(x, *args)
+
+    def recording_flash(q, k, v, *args):
+        attention_shapes.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2]))
+        return flash(q, k, v, *args)
+
+    with mock.patch.object(adm, "group_norm_silu", recording_norm), \
+            mock.patch.object(adm, "flash_attention", recording_flash):
+        forward = model_precision()(torch.no_grad()(lambda: model(x, cond, t)))
+        forward()  # warm-up: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        reset_counts()
+        del attention_shapes[:]
+        out = forward()
+        torch.cuda.synchronize()
+    launches = counts()
+    if launches != (16, 43, 0) or flash_attention.launches_wgmma:
+        raise AssertionError(f"launches {launches}, wgmma {flash_attention.launches_wgmma}, "
+                             f"want (16, 43, 0) and none on the wgmma route")
+    if out.shape != (ADM_BATCH, IMAGE, IMAGE, 4) or not torch.isfinite(out).all():
+        raise AssertionError(f"output {tuple(out.shape)} is not finite or not the shape")
+    if attention_shapes != adm_counts.flash_shapes(config, ADM_BATCH):
+        raise AssertionError(f"flash shapes {attention_shapes} are not the reference's "
+                             f"{adm_counts.flash_shapes(config, ADM_BATCH)}")
+    forward_ms = cuda_ms(forward, 5)
+    log(f"phase 18: {IMAGE} px, batch {ADM_BATCH}: launches (flash, GroupNorm+SiLU forward, "
+        f"backward) {launches} in one forward, flash at head dim 64 on the mma.sync route "
+        f"(0 on wgmma); forward {forward_ms:.3f} ms between CUDA events")
+    del x, cond, out
+
+    # the kernels at the forward's own shapes, each against its plain version
+    errs = {}
+    for shape in sorted(set(attention_shapes)):
+        if route(torch.float32, shape[3]) != "mma_sync":
+            raise AssertionError(f"flash {shape} would take the {route(torch.float32, shape[3])} "
+                                 f"route")
+        q, k, v = qkv(shape, device, SEED)
+        scale = shape[3] ** -0.5
+        got = flash_attention(q, k, v, scale)
+        want = flash_attention_reference(q, k, v, scale)
+        torch.testing.assert_close(got, want, **F32_TOL)
+        errs["flash", shape] = max_abs_err(got, want)
+    for c, hw in sorted(norm_shapes):
+        xg, gamma, beta, _ = gn_case(device, ADM_BATCH, hw, c, torch.float32, SEED)
+        with torch.no_grad():
+            got = group_norm_silu(xg, gamma, beta, ADM_GROUPS, ADM_EPS)
+            want = group_norm_silu_reference(xg, gamma, beta, ADM_GROUPS, ADM_EPS)
+        torch.testing.assert_close(got, want, **F32_TOL)
+        errs["group_norm_silu", (ADM_BATCH, c, hw)] = max_abs_err(got, want)
+    for (name, shape), err in errs.items():
+        log(f"phase 18: {name} {shape} f32: max abs err vs plain {err:.3e} (tolerance {F32_TOL})")
+    del q, k, v, xg, gamma, beta, got, want
+
+    # the sampler's own loop: 25 respaced steps, each one graph replay
+    rng = np.random.default_rng(SEED + 2)
+    condition = torch.from_numpy(rng.normal(size=(ADM_BATCH, IMAGE, IMAGE, 5))
+                                 .astype(np.float32)).to(device)
+    noise = torch.from_numpy(rng.normal(size=(SAMPLER_STEPS + 1, ADM_BATCH, IMAGE, IMAGE, 2))
+                             .astype(np.float32)).to(device)
+    diffusion.sample(condition, 2, noise=noise[:3])  # warm-up: the capture
+    torch.cuda.synchronize()
+    reset_counts()
+    GraphedForward.captures = GraphedForward.replays = GraphedForward.eager = 0
+    steps = (GaussianDiffusion.learned_range_steps, GaussianDiffusion.final_steps)
+    t0 = time.perf_counter()
+    sample = diffusion.sample(condition, SAMPLER_STEPS, noise=noise)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sample_launches = counts()
+    graphs = (GraphedForward.captures, GraphedForward.replays, GraphedForward.eager)
+    steps = (GaussianDiffusion.learned_range_steps - steps[0],
+             GaussianDiffusion.final_steps - steps[1])
+    want_launches = (16 * SAMPLER_STEPS, 43 * SAMPLER_STEPS, 0)
+    if (sample_launches, graphs, steps) != (want_launches, (0, SAMPLER_STEPS, 0),
+                                            (SAMPLER_STEPS - 1, 1)):
+        raise AssertionError(
+            f"a {SAMPLER_STEPS}-step sample: launches {sample_launches}, want {want_launches}; "
+            f"captures, replays, eager {graphs}, want (0, {SAMPLER_STEPS}, 0); learned-range "
+            f"and final steps {steps}, want ({SAMPLER_STEPS - 1}, 1)")
+    if not torch.isfinite(sample).all() or flash_attention.launches_wgmma:
+        raise AssertionError("the sample is not finite, or a flash call took the wgmma route")
+    log(f"phase 18: sampler batch {ADM_BATCH}, {SAMPLER_STEPS} respaced steps, one graph replay "
+        f"each: launches (flash, GroupNorm+SiLU forward, backward) {sample_launches}; "
+        f"{wall * 1e3:.2f} ms on the host's clock")
+    del model, diffusion, condition, noise, sample
+    torch.cuda.empty_cache()
+    return (
+        dict(launches_adm_sample=sample_launches[0],
+             max_abs_err_adm=max(e for (n, _), e in errs.items() if n == "flash")),
+        dict(launches_adm_sample=sample_launches[1],
+             max_abs_err_adm=max(e for (n, _), e in errs.items() if n == "group_norm_silu")),
+        {"name": "adm_forward", "route": "cuda", "source": "fea_tpu_torch/models/adm.py",
+         "ms": forward_ms, "batch": ADM_BATCH, "image": IMAGE,
+         "launches_flash": launches[0], "launches_group_norm_silu_fwd": launches[1]},
+    )
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", metavar="TREE",
                         help="also time the kernels of this checkout, as `earlier`")
     parser.add_argument("--only", metavar="PHASES",
-                        help="run only these phases (comma-separated numbers, 1 to 17); "
+                        help="run only these phases (comma-separated numbers, 1 to 18); "
                              "such a partial run prints no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -3486,8 +3671,10 @@ def main():
                     phase_cg_loop(device, results, earlier)
                 elif n == 17:
                     phase_precision(device, results)
+                elif n == 18:
+                    phase_adm(device)
                 else:
-                    raise SystemExit(f"--only takes the phases 1 to 17, not {n}")
+                    raise SystemExit(f"--only takes the phases 1 to 18, not {n}")
                 log(f"phase {n} done in {time.perf_counter() - t0:.1f} s")
             log(nvidia_smi())
         finally:
@@ -3549,6 +3736,9 @@ def main():
         t0 = time.perf_counter()
         phase_precision(device, results)
         log(f"phase 17 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        adm_flash, adm_gn, adm_entry = phase_adm(device)
+        log(f"phase 18 done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)
 
@@ -3572,13 +3762,13 @@ def main():
             "plain_ms": flash_ms["plain"], "bound_ms": flash_bound, "bound_by": flash_by,
             "library_ms": flash_ms["library"], "bound_unit": "tensor cores, TF32 at 495 TFLOP/s",
             **({"earlier_ms": flash_ms["earlier"]} if earlier is not None else {}),
-            "redesigned": REDESIGNED["flash_attention"], **full_attention,
+            "redesigned": REDESIGNED["flash_attention"], **full_attention, **adm_flash,
         },
         {
             "name": "group_norm_silu_fwd", "route": "cuda", "source": gn_source,
             "replaces": "fea_tpu/ops/fused_norm.py:115", "launches": gn_fwd,
             "launches_from_store": store_fwd, "launches_cli": cli_fwd, "launches_dp": dp_fwd,
-            **gn["fwd"],
+            **gn["fwd"], **adm_gn,
             "redesigned": REDESIGNED["group_norm_silu_fwd"],
         },
         {
@@ -3589,6 +3779,7 @@ def main():
             "redesigned": REDESIGNED["group_norm_silu_bwd"],
         },
         linear_entry,
+        adm_entry,
     ] + [dict(entry, launches=cg_launches[name]) for name, entry in cg_entries.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,3 +1,4 @@
+from .adm import ADMUNet, make_adm_diffusion_model
 from .diffusion import GaussianDiffusion, make_diffusion_model
 from .fdnunet import (
     FDNUNet,
@@ -10,6 +11,7 @@ from .fdnunet import (
 from .unet import UNet
 
 __all__ = [
+    "ADMUNet",
     "FDNUNet",
     "FDNUNetAuxDecoder",
     "FDNUNetDecoder",
@@ -17,6 +19,7 @@ __all__ = [
     "GaussianDiffusion",
     "UNet",
     "create_models",
+    "make_adm_diffusion_model",
     "make_diffusion_model",
     "predict",
 ]

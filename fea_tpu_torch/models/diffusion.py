@@ -11,12 +11,22 @@ feeds it): the sampler hands each step the last step's clamped x0, and
 zeros at the first; the loss, on a coin its caller draws once a batch,
 first estimates x0 with a forward under no_grad and hands it on detached. fea_tpu stores the
 setting and reads it nowhere.
+
+A model with `learned_range` (the ADM UNet, `models/adm.py`) returns the
+noise estimate and a variance interpolant v for each channel, and samples
+as openai/guided-diffusion's SpacedDiffusion does with LEARNED_RANGE and
+clip_denoised: the steps kept by `space_timesteps(timesteps, steps)`,
+betas recomputed over them, the model fed the original t, the posterior
+mean taken from the clamped x0, and log var = (v+1)/2 log beta_t +
+(1 - (v+1)/2) log(clipped posterior var_t). Its loss (guided-diffusion's
+hybrid L_simple + lambda L_vlb) is not supported.
 """
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..utils.precision import model_precision
 from ..utils.profiling import request_span, span
@@ -47,22 +57,65 @@ def sample_timesteps(timesteps: int, steps: int) -> list:
     return [int(t) for t in np.round(np.linspace(timesteps - 1, 0, steps))]
 
 
+def space_timesteps(num_timesteps: int, steps: int) -> list:
+    """guided-diffusion's respace.space_timesteps(num_timesteps, str(steps)),
+    one section: the time steps kept, sorted, `steps` of them spread evenly
+    over the process, rounded as Python's round does."""
+    if steps > num_timesteps:
+        raise ValueError(f"cannot divide {num_timesteps} steps into {steps}")
+    stride = 1 if steps <= 1 else (num_timesteps - 1) / (steps - 1)
+    kept, cur = set(), 0.0
+    for _ in range(steps):
+        kept.add(round(cur))
+        cur += stride
+    return sorted(kept)
+
+
+def respaced_schedule(alphas_bar: np.ndarray, kept: Sequence[int]) -> dict:
+    """The learned-range sampler's per-step scalars over the time steps
+    `kept` (guided-diffusion's SpacedDiffusion): betas recomputed as
+    1 - alphabar_{t_i} / alphabar_{t_{i-1}}, then its GaussianDiffusion's
+    quantities of them, in f64; "timestep_map" is the original t of each
+    respaced step."""
+    kept = sorted(kept)
+    ab_kept = alphas_bar[kept]
+    betas = 1.0 - ab_kept / np.concatenate([np.ones(1), ab_kept[:-1]])
+    ab = np.cumprod(1.0 - betas)
+    prev = np.concatenate([np.ones(1), ab[:-1]])
+    posterior_var = betas * (1.0 - prev) / (1.0 - ab)
+    return {
+        "timestep_map": list(kept),
+        "sqrt_recip_ab": np.sqrt(1.0 / ab),
+        "sqrt_recipm1_ab": np.sqrt(1.0 / ab - 1.0),
+        "coef1": betas * np.sqrt(prev) / (1.0 - ab),
+        "coef2": (1.0 - prev) * np.sqrt(1.0 - betas) / (1.0 - ab),
+        "log_betas": np.log(betas),
+        "log_var_clipped": np.log(np.concatenate([posterior_var[1:2], posterior_var[1:]])),
+    }
+
+
 class GaussianDiffusion:
-    """DDPM over (H, W, 2) displacement images with FDN conditioning. The
-    condition stack is [forces(2), constraints(1), materials(2)]; the model
-    predicts noise ('pred_noise') or the clean image ('pred_x0').
+    """DDPM over (H, W, 2) displacement images, conditioned on the stack
+    [forces(2), constraints(1), materials(2)]: an FDNUNet, whose model
+    predicts noise ('pred_noise') or the clean image ('pred_x0'), or an
+    ADMUNet with its learned-range variance.
 
     `self_cond_fed` and `self_cond_zero` count, process-wide, the
     self-conditioned model's forwards that were handed an estimate of x0
     and those that were handed zeros (or None, which the model turns into
-    zeros)."""
+    zeros). For a `learned_range` model (module docstring)
+    `learned_range_steps` counts the steps whose update drew its variance
+    from the model's output, and `final_steps` the last steps (t = 0),
+    which add no noise."""
 
     self_cond_fed = 0
     self_cond_zero = 0
+    learned_range_steps = 0
+    final_steps = 0
 
     def __init__(
         self,
-        model: FDNUNet,
+        model: nn.Module,
         timesteps: int = 1000,
         objective: str = "pred_noise",
         beta_schedule: str = "cosine",
@@ -77,6 +130,9 @@ class GaussianDiffusion:
         if self_condition and model.num_condition_channels is None:
             raise ValueError("self-conditioning needs a model built with num_condition_channels "
                              "(make_diffusion_model(self_condition=True))")
+        self.learned_range = getattr(model, "learned_range", False)
+        if self.learned_range and (objective != "pred_noise" or self_condition):
+            raise ValueError("a learned-range model predicts the noise, without self-conditioning")
         self.model = model
         self.timesteps = timesteps
         self.objective = objective
@@ -100,6 +156,8 @@ class GaussianDiffusion:
         self.host = {k: v.astype(np.float32) for k, v in schedules.items()}
         for name, value in self.host.items():
             setattr(self, name, torch.from_numpy(value).to(device))
+        self._alphas_bar = alphas_bar  # f64, for respacing
+        self._respaced = {}  # learned-range steps -> their f32 host scalars
         # the sampler's forwards, one CUDA graph replay a step on the card
         self.graphs = graphed.GraphedForward()
 
@@ -133,6 +191,10 @@ class GaussianDiffusion:
         no_grad estimates x0 (unclamped, as lucidrains' model_predictions
         gives it to its loss) and the graded forward takes it detached;
         else the graded forward takes zeros."""
+        if self.learned_range:
+            raise NotImplementedError(
+                "a learned-range model trains on guided-diffusion's hybrid loss "
+                "(L_simple + lambda L_vlb), which is not supported")
         if generator is None and (t is None or noise is None):
             raise ValueError("loss needs a generator or both t and the noise")
         if self.self_condition and coin is None:
@@ -184,7 +246,8 @@ class GaussianDiffusion:
         at the first call at a shape; the update stays eager. With
         self_condition step 0's model takes a zeros tensor made once a
         call and step i > 0 step i - 1's clamped x0, so that every step
-        replays one graph."""
+        replays one graph. A learned-range model samples over the respaced
+        steps (module docstring)."""
         b, h, w, _ = condition.shape
         shape = (b, h, w, 2)
         steps = num_steps or self.timesteps
@@ -207,6 +270,8 @@ class GaussianDiffusion:
         f32 = np.float32
         with request_span("sample.request") as request, graphed.scope(self.graphs):
             x = draw(0)
+            if self.learned_range:
+                return self._sample_learned_range(x, condition, steps, draw, request.request)
             x_self = torch.zeros_like(x) if self.self_condition else None
             for i, t in enumerate(sample_timesteps(self.timesteps, steps)):
                 with span("sample.step", step=i, request=request.request):
@@ -241,6 +306,41 @@ class GaussianDiffusion:
                     mean = (x - coef * noise_pred) / float(np.sqrt(alpha))
                     x = mean + float(np.sqrt(var)) * draw(i + 1)
             return x
+
+    def respaced(self, steps: int) -> dict:
+        """The learned-range sampler's schedule over `steps` respaced steps
+        (`respaced_schedule`), its scalars as f32 on the host."""
+        if steps not in self._respaced:
+            kept = space_timesteps(self.timesteps, steps)
+            schedule = respaced_schedule(self._alphas_bar, kept)
+            self._respaced[steps] = {
+                k: v if k == "timestep_map" else v.astype(np.float32)
+                for k, v in schedule.items()}
+        return self._respaced[steps]
+
+    def _sample_learned_range(self, x, condition, steps, draw, request):
+        """The respaced learned-range loop from the initial image x, step
+        i's fresh noise draw(i + 1)."""
+        b, c = x.shape[0], x.shape[-1]
+        s = self.respaced(steps)
+        for step, i in enumerate(reversed(range(steps))):
+            with span("sample.step", step=step, request=request):
+                tb = torch.full((b,), s["timestep_map"][i], device=condition.device)
+                out = self.model(x, condition, time=tb.float())
+                eps, v = out[..., :c], out[..., c:]
+                x0 = (float(s["sqrt_recip_ab"][i]) * x
+                      - float(s["sqrt_recipm1_ab"][i]) * eps).clamp(-1.0, 1.0)
+                mean = float(s["coef1"][i]) * x0 + float(s["coef2"][i]) * x
+                if i == 0:
+                    GaussianDiffusion.final_steps += 1
+                    x = mean
+                    continue
+                frac = (v + 1.0) / 2.0
+                log_var = (frac * float(s["log_betas"][i])
+                           + (1.0 - frac) * float(s["log_var_clipped"][i]))
+                x = mean + torch.exp(0.5 * log_var) * draw(step + 1)
+                GaussianDiffusion.learned_range_steps += 1
+        return x
 
 
 def make_diffusion_model(

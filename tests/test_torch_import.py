@@ -21,6 +21,7 @@ MODULES = [
     "fea_tpu_torch.models.time_embedding",
     "fea_tpu_torch.models.fdnunet",
     "fea_tpu_torch.models.diffusion",
+    "fea_tpu_torch.models.adm",
     "fea_tpu_torch.models.convert",
     "fea_tpu_torch.models.initializers",
     "fea_tpu_torch.models.unet",
