@@ -305,6 +305,11 @@ LINEAR_ATTENTION_DESIGN = (
     "16-byte cp.async a tile ahead, p = exp(k - m) with an online max, p v^T in register "
     "blocks; the chunks' partials and the memory slots combined in a fixed order; q's "
     "softmax over d and ctx^T q in register blocks, 16-byte stores; strict f32, no atomics")
+# the modulated GroupNorm+SiLU forward's design, for the kernels line
+MODULATED_DESIGN = (
+    "the fused forward's kernels instantiated per modulation: per (b, c) scale and shift "
+    "folded into the coefficients, per pixel read beside x in the pass that writes y; "
+    "forward only, channels-last operands copied to NCHW first")
 # b, heads, h, w of the sampler's stage-0 linear attention at 256 px
 LINEAR_ATTENTION_SHAPE = (2, 4, 256, 256)
 LINEAR_ATTENTION_SLOTS = 4
@@ -406,11 +411,13 @@ def loop_wrappers():
 
 def reset_counts():
     from fea_tpu_torch.ops import flash_attention, group_norm_silu
+    from fea_tpu_torch.ops.fused_norm import group_norm_modulated_silu
     from fea_tpu_torch.ops.linear_attention import linear_attention
 
     flash_attention.launches = flash_attention.launches_wgmma = 0
     linear_attention.launches = 0
     group_norm_silu.launches_fwd = group_norm_silu.launches_bwd = 0
+    group_norm_modulated_silu.launches = 0
     for wrapper in loop_wrappers():
         wrapper.launches = 0
 
@@ -425,6 +432,124 @@ def counts():
     from fea_tpu_torch.ops import flash_attention, group_norm_silu
 
     return flash_attention.launches, group_norm_silu.launches_fwd, group_norm_silu.launches_bwd
+
+
+def modulated_launches():
+    """Calls of the modulated GroupNorm+SiLU forward."""
+    from fea_tpu_torch.ops.fused_norm import group_norm_modulated_silu
+
+    return group_norm_modulated_silu.launches
+
+
+def modulated_calls(forward, limit=None):
+    """Every call of the modulated GroupNorm+SiLU forward that `forward()`
+    makes (the first `limit` where given), read where the blocks call it
+    (`models.blocks`), with its arguments cloned in their layouts: [(x,
+    gamma, beta, scale, shift, groups, eps)]."""
+    from fea_tpu_torch.models import blocks
+
+    calls, entry = [], blocks.group_norm_modulated_silu
+
+    def recording(*args):
+        if limit is None or len(calls) < limit:
+            calls.append(tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args))
+        return entry(*args)
+
+    with mock.patch.object(blocks, "group_norm_modulated_silu", recording):
+        forward()
+    torch.cuda.synchronize()
+    return calls
+
+
+def modulated_copies(calls):
+    """The operands of `calls` (`modulated_calls`) that the modulated
+    forward copies to contiguous NCHW first: x, and per pixel scale and
+    shift, where not contiguous."""
+    return sum(not t.is_contiguous() for x, _, _, scale, shift, _, _ in calls
+               for t in ((x, scale, shift) if scale.shape == x.shape else (x,)))
+
+
+def modulated_bytes(x, scale):
+    """The modulated forward's bytes bound: x, per-pixel scale and shift
+    read once and y written once."""
+    tensors = 4 if scale.shape == x.shape else 2
+    return tensors * x.numel() * x.element_size()
+
+
+def check_modulated(tag, calls):
+    """The modulated forward at each of `calls` (`modulated_calls`) against
+    its plain version, PyTorch's chain (f32: fea_tpu's forward bounds);
+    then the calls, as one forward makes them, timed in turns: the kernels
+    (with the copies of channels-last operands), the kernels on operands
+    copied beforehand, and the chain, beside the bytes bound. The kernels
+    line's entry."""
+    from fea_tpu_torch.ops.fused_norm import (
+        forward_plan, group_norm_modulated_silu, group_norm_modulated_silu_reference, modulation)
+
+    worst = 0.0
+    seen = set()
+    for args in calls:
+        x, _, _, scale, shift, groups, eps = args
+        mode = modulation(x, scale, shift)
+        key = (mode, tuple(x.shape), x.is_contiguous(), scale.is_contiguous())
+        if key in seen:
+            continue
+        seen.add(key)
+        with torch.no_grad():
+            got = group_norm_modulated_silu(*args)
+            want = group_norm_modulated_silu_reference(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **GN_FWD_TOL)
+        err = rel_err(got, want)
+        worst = max(worst, err)
+        dense = [t.contiguous() for t in (x, scale, shift)]
+        plan = forward_plan(dense[0], groups, (dense[0].data_ptr() | dense[1].data_ptr()
+                                               | dense[2].data_ptr()) if mode == "pixel" else None)
+        log(f"{tag}: modulated GroupNorm+SiLU {mode} {tuple(x.shape)} "
+            f"({'contiguous' if key[2] and (mode == 'channel' or key[3]) else 'channels-last'} "
+            f"in), {groups} groups, route {plan.route} (cluster {plan.cluster}, vec "
+            f"{plan.vec}): max abs err over max abs vs plain {err:.3e}")
+        del got, want
+
+    def every(fn, calls):
+        def run():
+            for args in calls:
+                fn(*args)
+        return torch.no_grad()(run)
+
+    dense = [tuple(t.contiguous() if isinstance(t, torch.Tensor) and t.dim() == 4
+                   and t.shape[2:] == args[0].shape[2:] else t for t in args) for args in calls]
+    ms = in_turns({"kernel": every(group_norm_modulated_silu, calls),
+                   "dense": every(group_norm_modulated_silu, dense),
+                   "chain": every(group_norm_modulated_silu_reference, calls)}, 5)
+    nbytes = sum(modulated_bytes(args[0], args[3]) for args in calls)
+    bound = bytes_ms(nbytes)
+    log(f"{tag}: the {len(calls)} modulated GroupNorm+SiLU calls of one forward: kernels "
+        f"{ms['kernel']:.4f} ms ({ms['dense']:.4f} ms on operands copied to NCHW beforehand), "
+        f"PyTorch's chain {ms['chain']:.4f} ms; bound {bound:.4f} ms (bytes: "
+        f"{nbytes / 1e9:.3f} GB), the kernels at {100 * bound / ms['kernel']:.1f}% of it "
+        f"({100 * bound / ms['dense']:.1f}% without the copies); largest error {worst:.3e}")
+    return dict(calls_a_forward=len(calls), max_rel_err=worst, ms_a_forward=ms["kernel"],
+                dense_ms_a_forward=ms["dense"], chain_ms_a_forward=ms["chain"],
+                bound_ms_a_forward=bound)
+
+
+def traced_kernels(fn):
+    """{kernel name: launches} on the card while `fn()` runs, by
+    torch.profiler's CUDA activity (kernels replayed from a graph
+    included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def named(kernels, part):
+    """Launches of the kernels whose names contain `part`."""
+    return sum(n for name, n in kernels.items() if part in name)
 
 
 def qkv(shape, device, seed):
@@ -469,6 +594,16 @@ class ConvPrecisions:
             raise AssertionError(f"{tag}: convolutions ran at {sorted(self.seen)}, want {want}")
         log(f"{tag}: the model ran with cuDNN's f32 convolutions at {want}")
         return want
+
+
+# modulated GroupNorm+SiLU calls a forward: the DDPM's 20 FDN calls (4 in
+# each of 4 down stages, 4 in the middle) and 9 time-modulated ones (block1
+# of the 8 up blocks and of final_resnet); ADM's one per ResBlock; the
+# regression encoder's 20 FDN calls, wherever it runs without a gradient
+# (predict, the trainers' and the CLI's samples, the app)
+DDPM_MODULATED = 29
+ADM_MODULATED = 42
+PREDICT_MODULATED = 20
 
 
 def phase_kernel(device, earlier):
@@ -571,12 +706,15 @@ def phase_sampler(device):
     wall = time.perf_counter() - t0
     launches, gn_fwd, gn_bwd = counts()
     linear = linear_attention.launches  # calls, three launches each
-    if (launches, gn_fwd, gn_bwd, linear) != (3 * SAMPLER_STEPS, 9 * SAMPLER_STEPS, 0,
-                                              6 * SAMPLER_STEPS):
+    modulated = modulated_launches()
+    if (launches, gn_fwd, gn_bwd, linear, modulated) != (
+            3 * SAMPLER_STEPS, 9 * SAMPLER_STEPS, 0, 6 * SAMPLER_STEPS,
+            DDPM_MODULATED * SAMPLER_STEPS):
         raise AssertionError(
-            f"flash / GroupNorm+SiLU forward / backward / linear attention launched {launches} "
-            f"/ {gn_fwd} / {gn_bwd} / {linear} times, want {3 * SAMPLER_STEPS} / "
-            f"{9 * SAMPLER_STEPS} / 0 / {6 * SAMPLER_STEPS}"
+            f"flash / GroupNorm+SiLU forward / backward / linear attention / modulated "
+            f"GroupNorm+SiLU launched {launches} / {gn_fwd} / {gn_bwd} / {linear} / {modulated} "
+            f"times, want {3 * SAMPLER_STEPS} / {9 * SAMPLER_STEPS} / 0 / {6 * SAMPLER_STEPS} / "
+            f"{DDPM_MODULATED * SAMPLER_STEPS}"
         )
     if out.shape != (SAMPLER_BATCH, IMAGE, IMAGE, 2) or not torch.isfinite(out).all():
         raise AssertionError(f"sampler output {tuple(out.shape)} is not finite or not the shape")
@@ -585,11 +723,49 @@ def phase_sampler(device):
         f"{conv}: {wall * 1e3:.2f} ms per call, {wall * 1e3 / SAMPLER_STEPS:.3f} ms per "
         f"denoising step, {wall * 1e3 / SAMPLER_BATCH:.2f} ms per request; "
         f"flash launches {launches}, GroupNorm+SiLU forward launches {gn_fwd}, "
-        f"linear-attention calls {linear} ({3 * linear} launches, three a call)"
+        f"linear-attention calls {linear} ({3 * linear} launches, three a call), modulated "
+        f"GroupNorm+SiLU calls {modulated}"
     )
+    modulated_entry = dict(launches=modulated,
+                           **phase_sampler_modulated(diffusion, model, condition, noise, device))
     with model_precision(conv="ieee"):
         check_sampler(diffusion, model, condition, noise, out, device)
-    return launches, dict(linear_attention_stage0(device), launches=3 * linear, calls=linear)
+    return launches, dict(linear_attention_stage0(device), launches=3 * linear, calls=linear), \
+        modulated_entry
+
+
+def phase_sampler_modulated(diffusion, model, condition, noise, device):
+    """Phase 2's modulated GroupNorm+SiLU: every call of one forward against
+    the plain version and timed against PyTorch's chain; then a traced
+    2-step sample (graph replays), which must launch no PyTorch GroupNorm
+    kernel (`RowwiseMomentsCUDAKernel`)."""
+    from fea_tpu_torch.utils.precision import model_precision
+
+    t = torch.full((SAMPLER_BATCH,), 500.0, device=device)
+    calls = modulated_calls(model_precision()(torch.no_grad()(
+        lambda: model(noise[0], condition, time=t))))
+    if len(calls) != DDPM_MODULATED:
+        raise AssertionError(f"a forward made {len(calls)} modulated calls, want "
+                             f"{DDPM_MODULATED}")
+    copies = modulated_copies(calls)
+    log(f"phase 2: one forward's modulated calls copy {copies} channels-last operands to NCHW")
+    entry = dict(check_modulated("phase 2", calls), copies_a_forward=copies)
+    del calls
+    reset_counts()
+    kernels = traced_kernels(lambda: diffusion.sample(condition, 2, noise=noise[:3]))
+    modulated = modulated_launches()
+    moments = named(kernels, "RowwiseMomentsCUDAKernel")
+    ours = {name: n for name, n in kernels.items()
+            if any(k in name for k in ("fwd_cluster", "fwd_stats", "fwd_apply"))}
+    log(f"phase 2: a traced 2-step sample (graph replays): {modulated} modulated calls, "
+        f"PyTorch GroupNorm moments kernels {moments}; the fused forward's kernels "
+        + "; ".join(f"{name} x{n}" for name, n in sorted(ours.items())))
+    if moments or modulated != 2 * DDPM_MODULATED:
+        raise AssertionError(f"a 2-step sample launched {moments} PyTorch GroupNorm moments "
+                             f"kernels and {modulated} modulated calls, want 0 and "
+                             f"{2 * DDPM_MODULATED}")
+    torch.cuda.empty_cache()
+    return dict(entry, traced_moments_kernels=moments)
 
 
 def linear_attention_stage0(device):
@@ -708,6 +884,10 @@ def predictor_inputs(batch, size, seed):
 
 
 def phase_predictor(device):
+    """Phase 3: the regression `predict` at batch PREDICT_BATCH, 256 px:
+    timed, its launches counted, a small batch held to the CPU, and its
+    modulated GroupNorm+SiLU calls held to PyTorch's chain (`check_modulated`).
+    Returns the kernels line's predict fields of the modulated entry."""
     from fea_tpu_torch.models import create_models, predict
     from fea_tpu_torch.utils.precision import model_precision
 
@@ -733,8 +913,9 @@ def phase_predictor(device):
         out = predict(encoder, decoder, materials, conditions, geometry)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / iters
-    if counts() != (0, 18 * iters, 0):
-        raise AssertionError(f"predictor launches {counts()}, want (0, {18 * iters}, 0)")
+    if counts() != (0, 18 * iters, 0) or modulated_launches() != PREDICT_MODULATED * iters:
+        raise AssertionError(f"predictor launches {counts()} and {modulated_launches()} modulated, "
+                             f"want (0, {18 * iters}, 0) and {PREDICT_MODULATED * iters}")
     if out.shape != (PREDICT_BATCH, IMAGE, IMAGE, 2) or not torch.isfinite(out).all():
         raise AssertionError(f"predictor output {tuple(out.shape)} is not finite or not the shape")
     outside = geometry[..., 0] < 0
@@ -753,6 +934,15 @@ def phase_predictor(device):
     )
     if err_cpu > CPU_ATOL:
         raise AssertionError(f"card and CPU differ by {err_cpu}")
+    calls = modulated_calls(lambda: predict(encoder, decoder, materials, conditions, geometry))
+    if len(calls) != PREDICT_MODULATED:
+        raise AssertionError(f"a predict forward made {len(calls)} modulated calls, want "
+                             f"{PREDICT_MODULATED}")
+    entry = check_modulated("phase 3", calls)
+    log(f"phase 3: {PREDICT_MODULATED * iters} modulated GroupNorm+SiLU calls in {iters} "
+        f"batches, {PREDICT_MODULATED} a forward")
+    return {f"predict_{k}": v for k, v in entry.items()} | {
+        "launches_predict": PREDICT_MODULATED * iters}
 
 
 GN_GROUPS = 8
@@ -838,10 +1028,10 @@ def rel_err(a, b):
 
 
 def phase_group_norm(device, earlier):
-    """The kernels against the plain version in every case, then their
-    time beside it, the library chain and, given `earlier` (another tree's
-    ops), its kernels, at the stage shapes; per-step sums for the kernels'
-    rows."""
+    """The kernels against the plain version in every case (and, given
+    `earlier`, another tree's ops, the forward's y bit for bit that tree's),
+    then their time beside it, the library chain and `earlier`'s kernels, at
+    the stage shapes; per-step sums for the kernels' rows."""
     from fea_tpu_torch.ops.fused_norm import (
         forward_plan, group_norm_silu, group_norm_silu_reference, resident_clusters,
     )
@@ -863,6 +1053,12 @@ def phase_group_norm(device, earlier):
             errs = [max_abs_err(got[0], want[0])] + [
                 rel_err(g, w) for g, w in zip(got[1:], want[1:])
             ]
+            if earlier is not None:
+                with torch.no_grad():
+                    y_earlier = earlier.group_norm_silu(x, gamma, beta, GN_GROUPS, GN_EPS)
+                if not torch.equal(got[0], y_earlier):
+                    raise AssertionError(f"the forward's y differs from the earlier tree's at "
+                                         f"{case}")
             if dtype == torch.float32:
                 torch.testing.assert_close(got[0], want[0], **GN_FWD_TOL)
                 if max(errs[1:]) >= GN_VJP_REL:
@@ -1939,7 +2135,9 @@ def tree_size(root):
 def phase_cli(device, results):
     """Phase 13: the pipeline end to end through the port's CLI, in this
     process (`fea_tpu_torch.cli.main`), so that the launch counts can be
-    read after each command. Returns them by command."""
+    read after each command. Returns them by command: the GroupNorm+SiLU
+    forward's and backward's, and the modulated forward's; and the check of
+    the modulated calls of `sample`'s and `app`'s first forward."""
     from PIL import Image
 
     from fea_tpu_torch import cli
@@ -1956,35 +2154,49 @@ def phase_cli(device, results):
 
     root = results / "cli"
     root.mkdir(parents=True)
-    launches = {}
+    launches, modulated, checked = {}, {}, {}
 
-    def run(tag, *argv, runs_model=False):
+    def run(tag, *argv, runs_model=False, check=False):
         """One command; `runs_model`: it runs the model, whose convolutions must
-        then have run at the CLI's own setting, the policy's default."""
+        then have run at the CLI's own setting, the policy's default;
+        `check`: the modulated calls of its first forward are held to
+        PyTorch's chain after it (`check_modulated`)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = tree_size(root)
         reset_counts()
         recorder = ConvPrecisions()
+        outs = []
         t0 = time.perf_counter()
         try:
-            out = cli.main([str(a) for a in argv])
+            calls = modulated_calls(lambda: outs.append(cli.main([str(a) for a in argv])),
+                                    limit=PREDICT_MODULATED if check else 0)
         finally:
             recorder.stop()
+        out, = outs
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[tag] = counts()
+        launches[tag], modulated[tag] = counts(), modulated_launches()
         log(f"phase 13: {tag}: {wall:.1f} s, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
             f"{(tree_size(root) - before) / 1e9:.3f} GB written (net); launches (flash, "
-            f"GroupNorm+SiLU forward, backward) {launches[tag]}")
+            f"GroupNorm+SiLU forward, backward) {launches[tag]}, modulated GroupNorm+SiLU "
+            f"{modulated[tag]}")
         if runs_model:
             recorder.check(f"phase 13: {tag}")
+        if check:
+            if len(calls) != PREDICT_MODULATED:
+                raise AssertionError(f"{tag}: {len(calls)} modulated calls in its first "
+                                     f"forward, want {PREDICT_MODULATED}")
+            checked[tag] = check_modulated(f"phase 13: {tag}", calls)
         return out
 
-    def want_launches(tag, fwd, bwd):
-        if launches[tag] != (0, fwd, bwd):
-            raise AssertionError(f"{tag}: launches {launches[tag]}, want (0, {fwd}, {bwd})")
+    def want_launches(tag, fwd, bwd, mod):
+        """`mod`: modulated calls, 20 a forward that needs no gradient (the
+        samples' and the app's), none in training."""
+        if launches[tag] != (0, fwd, bwd) or modulated[tag] != mod:
+            raise AssertionError(f"{tag}: launches {launches[tag]} and {modulated[tag]} "
+                                 f"modulated, want (0, {fwd}, {bwd}) and {mod}")
 
     train, held, seq = root / "train", root / "held_out", root / "sequential"
     data = ("--conditions_per_plate", CLI_CONDITIONS, "--steps_per_condition", CLI_STEPS,
@@ -2024,7 +2236,8 @@ def phase_cli(device, results):
         "--conditions_per_plate", CLI_CONDITIONS, "--num_sample_conditions_per_plate",
         CLI_CONDITIONS, "--no_progress_bar", "--results_dir", res, *model, runs_model=True)
     # 18 + 18 per step, and 18 forward per batch of the milestone's samples
-    want_launches("train", 18 * (CLI_TRAIN_STEPS + sample_batches), 18 * CLI_TRAIN_STEPS)
+    want_launches("train", 18 * (CLI_TRAIN_STEPS + sample_batches), 18 * CLI_TRAIN_STEPS,
+                  PREDICT_MODULATED * sample_batches)
     (train_log,) = res.glob(f"train-e{CLI_TRAIN_STEPS}-b{TRAIN_BATCH}-*.log")
     parsed = parse_train_log(str(train_log))
     if (list(parsed["steps"]) != list(range(CLI_TRAIN_STEPS))
@@ -2044,8 +2257,9 @@ def phase_cli(device, results):
                 "--conditions_per_plate", CLI_CONDITIONS, "--steps_per_condition", CLI_STEPS)
     scores = {}
     for tag, flags in (("raw", ()), ("EMA", ("--use_ema",))):
-        run(f"sample ({tag})", *sample, *flags, runs_model=True)
-        want_launches(f"sample ({tag})", 18 * sample_batches, 0)
+        run(f"sample ({tag})", *sample, *flags, runs_model=True, check=tag == "raw")
+        want_launches(f"sample ({tag})", 18 * sample_batches, 0,
+                      PREDICT_MODULATED * sample_batches)
         written = len(list((res / "final").rglob("sample_*.png")))
         if written != 2 * sample_set:
             raise AssertionError(f"sample ({tag}) wrote {written} PNGs")
@@ -2060,8 +2274,8 @@ def phase_cli(device, results):
 
     out = run("app gusset --checkpoint --use_ema", "app", "gusset", "--checkpoint",
               res / "model-final", "--use_ema", "--image_size", APP_IMAGE, "--output_dir",
-              root / "app", runs_model=True)
-    want_launches("app gusset --checkpoint --use_ema", 18, 0)
+              root / "app", runs_model=True, check=True)
+    want_launches("app gusset --checkpoint --use_ema", 18, 0, PREDICT_MODULATED)
     log(f"phase 13: app gusset: {out}")
     if not (out["converged"] and out["raster_roundtrip_mae"] < 1e-2
             and math.isfinite(out["pred_mae"])):
@@ -2085,7 +2299,7 @@ def phase_cli(device, results):
         "--num_steps_per_milestone", CLI_DIFFUSION_STEPS, "--conditions_per_plate",
         CLI_CONDITIONS, "--num_steps_per_condition", CLI_STEPS, "--results_dir",
         root / "results_diffusion", runs_model=True)
-    want_launches("train-diffusion", 9 * CLI_DIFFUSION_STEPS, 9 * CLI_DIFFUSION_STEPS)
+    want_launches("train-diffusion", 9 * CLI_DIFFUSION_STEPS, 9 * CLI_DIFFUSION_STEPS, 0)
     state = torch.load(root / "results_diffusion" / "model-final" / "state.pt",
                        map_location="cpu", mmap=True, weights_only=True)
     if state["step"] != CLI_DIFFUSION_STEPS or not all(
@@ -2093,9 +2307,14 @@ def phase_cli(device, results):
         raise AssertionError(f"train-diffusion: step {state['step']} or non-finite params")
     del state
     torch.cuda.empty_cache()
+    stray = {tag: n for tag, n in modulated.items()
+             if n and not tag.startswith(("train", "sample", "app"))}
+    if stray:  # the commands that run no model
+        raise AssertionError(f"modulated GroupNorm+SiLU calls in {stray}")
     fwd = {tag: n for tag, (_, n, _) in launches.items() if n}
     bwd = {tag: n for tag, (_, _, n) in launches.items() if n}
-    return fwd, bwd
+    mod = {tag: n for tag, n in modulated.items() if n}
+    return fwd, bwd, mod, checked
 
 
 
@@ -2176,18 +2395,19 @@ def dp_regression_rank(results, reference, steps):
         first = {k: module_rel(trainer.opt_states[k].mu, ref["mu"][k]) for k in MODULES}
         recorder = ConvPrecisions()
         trainer.train(on_step)
-    launches, saves = counts(), save.call_count
+    launches, modulated, saves = counts(), modulated_launches(), save.call_count
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     reset_counts()
     files, _, sample_loss = trainer.sample_and_save(milestone="dp", use_ema=True)
-    sample_launches = counts()
+    sample_launches, sample_modulated = counts(), modulated_launches()
     grads = [p.detach().clone() for k in MODULES for p in trainer.params[k]]
     rows = torch.zeros((TRAIN_BATCH // distributed.process_count(), IMAGE, IMAGE, 2), device=device)
     return dict(
         rank=distributed.process_index(), device=str(device), losses=losses,
         conv=sorted(recorder.seen),
         ms=list(np.diff([t0] + stamps) * 1e3), grad_rel=first, launches=launches,
-        sample_launches=sample_launches, saves=saves, files=None if files is None else len(files),
+        modulated=modulated, sample_launches=sample_launches, sample_modulated=sample_modulated,
+        saves=saves, files=None if files is None else len(files),
         sample_loss=sample_loss, peak_gb=peak,
         all_reduce_ms=timed_collective(device, lambda: mesh.all_reduce_mean(grads), 3),
         bucket_bytes=sum(g.numel() * g.element_size() for g in grads),
@@ -2227,12 +2447,12 @@ def dp_diffusion_rank(results, reference, steps):
             grad_rel = module_rel(trainer.opt_state.mu, ref["mu"])
         elif conv is None:
             conv = sorted(recorder.seen)
-    launches = counts()
+    launches, modulated = counts(), modulated_launches()
     with mock.patch.object(torch, "save", wraps=torch.save) as save:
         trainer.save_checkpoint("final")
     opt = trainer.opt_state
     return dict(rank=distributed.process_index(), losses=losses, ms=ms, grad_rel=grad_rel,
-                conv=conv, launches=launches, saves=save.call_count,
+                conv=conv, launches=launches, modulated=modulated, saves=save.call_count,
                 peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
                 digest=state_digest([*trainer.params, *trainer.ema_params, *opt.mu, *opt.nu]))
 
@@ -2251,7 +2471,8 @@ def check_ranks(tag, outs, ref_loss, want_launches, grad_rel):
     """Both ranks' state equal bit for bit, the first loss and the reduced
     gradients (both at ieee) within STEP_LOSS_RTOL / STEP_GRAD_REL of the
     one-rank step, the later steps' convolutions at the policy's default,
-    the kernels launched in every rank, one checkpoint written by rank 0."""
+    the kernels launched in every rank (the modulated forward in none: the
+    steps need gradients), one checkpoint written by rank 0."""
     from fea_tpu_torch.utils.precision import DEFAULT_CONV
 
     if len({o["digest"] for o in outs}) != 1:
@@ -2263,9 +2484,9 @@ def check_ranks(tag, outs, ref_loss, want_launches, grad_rel):
             raise AssertionError(f"{tag}: rank {o['rank']} loss {o['losses'][0]} against {ref_loss}")
         if grad_rel(o) > STEP_GRAD_REL:
             raise AssertionError(f"{tag}: rank {o['rank']} gradients {grad_rel(o)} off")
-        if o["launches"] != want_launches:
-            raise AssertionError(f"{tag}: rank {o['rank']} launches {o['launches']}, "
-                                 f"want {want_launches}")
+        if o["launches"] != want_launches or o["modulated"]:
+            raise AssertionError(f"{tag}: rank {o['rank']} launches {o['launches']} and "
+                                 f"{o['modulated']} modulated, want {want_launches} and 0")
     if [o["saves"] for o in outs] != [1] + [0] * (len(outs) - 1):
         raise AssertionError(f"{tag}: checkpoint writes by rank {[o['saves'] for o in outs]}")
 
@@ -2283,8 +2504,10 @@ def regression_ranks(tag, results, reference, ref_loss, devices, backend):
     if [o["files"] for o in outs] != [16] + [None] * (len(outs) - 1) or len(
             {o["sample_loss"] for o in outs}) != 1 or not math.isfinite(outs[0]["sample_loss"]):
         raise AssertionError(f"{tag}: sample_and_save {[(o['files'], o['sample_loss']) for o in outs]}")
-    if any(o["sample_launches"] != (0, 18, 0) for o in outs):
-        raise AssertionError(f"{tag}: sample launches {[o['sample_launches'] for o in outs]}")
+    if any(o["sample_launches"] != (0, 18, 0) or o["sample_modulated"] != PREDICT_MODULATED
+           for o in outs):
+        raise AssertionError(f"{tag}: sample launches "
+                             f"{[(o['sample_launches'], o['sample_modulated']) for o in outs]}")
     if not (results / "model-final" / "state.pt").is_file():
         raise AssertionError(f"{tag}: no checkpoint")
     for o in outs:
@@ -2293,7 +2516,7 @@ def regression_ranks(tag, results, reference, ref_loss, devices, backend):
             f"reduced gradients {max(o['grad_rel'].values()):.3e} of each module's largest off "
             f"the one-rank step; ms per step {', '.join(f'{t:.3f}' for t in o['ms'])} (the first "
             f"at ieee with the warm-up, the rest at {o['conv'][0]}); launches {o['launches']}, "
-            f"sample batch {o['sample_launches']}; "
+            f"sample batch {o['sample_launches']} and {o['sample_modulated']} modulated; "
             f"peak {o['peak_gb']:.2f} GB; all-reduce of {o['bucket_bytes'] / 1e9:.3f} GB "
             f"{', '.join(f'{t:.3f}' for t in o['all_reduce_ms'])} ms; gather of "
             f"{o['gather_bytes'] / 1e6:.3f} MB {', '.join(f'{t:.3f}' for t in o['gather_ms'])} ms")
@@ -2370,7 +2593,8 @@ def shard_shape_witness(device, ranks):
 
 def phase_data_parallel(device, results):
     """Phase 14: data parallelism. Returns the GroupNorm+SiLU launches of
-    one rank's runs in 14b and 14c."""
+    one rank's runs in 14b and 14c, forward and backward, and the modulated
+    forward's calls in one rank's sample batch of 14b."""
     from fea_tpu_torch.datagen import batched, generate_data_batched
     from fea_tpu_torch.parallel import distributed, launch, scaling
     from fea_tpu_torch.train import Trainer
@@ -2413,8 +2637,9 @@ def phase_data_parallel(device, results):
             if not reference:  # the one-rank step 14b is held against
                 reference.update(loss=losses[0], mu={
                     k: [m.to("cpu", copy=True) for m in trainer.opt_states[k].mu] for k in MODULES})
-        if counts() != (0, 18 * DP_STEPS, 18 * DP_STEPS):
-            raise AssertionError(f"14a {tag}: launches {counts()}")
+        if counts() != (0, 18 * DP_STEPS, 18 * DP_STEPS) or modulated_launches():
+            raise AssertionError(f"14a {tag}: launches {counts()}, {modulated_launches()} "
+                                 f"modulated")
         if torch.distributed.is_initialized():
             trainer.save_checkpoint("final")
             if not (root / tag / "model-final" / "state.pt").is_file():
@@ -2536,7 +2761,8 @@ def phase_data_parallel(device, results):
            "dp_diffusion_per_rank": c_outs[0]["launches"][1]}
     bwd = {"dp_regression_per_rank": b_outs[0]["launches"][2],
            "dp_diffusion_per_rank": c_outs[0]["launches"][2]}
-    return fwd, bwd
+    mod = {"dp_regression_sample_per_rank": b_outs[0]["sample_modulated"]}
+    return fwd, bwd, mod
 
 
 # phase 15: band-block Jacobi on phase 9's chunk and in the datagen
@@ -3507,9 +3733,11 @@ def phase_adm(device):
         out = forward()
         torch.cuda.synchronize()
     launches = counts()
-    if launches != (16, 43, 0) or flash_attention.launches_wgmma:
+    modulated = modulated_launches()
+    if launches != (16, 43, 0) or flash_attention.launches_wgmma or modulated != ADM_MODULATED:
         raise AssertionError(f"launches {launches}, wgmma {flash_attention.launches_wgmma}, "
-                             f"want (16, 43, 0) and none on the wgmma route")
+                             f"modulated calls {modulated}, want (16, 43, 0), none on the "
+                             f"wgmma route and {ADM_MODULATED}")
     if out.shape != (ADM_BATCH, IMAGE, IMAGE, 4) or not torch.isfinite(out).all():
         raise AssertionError(f"output {tuple(out.shape)} is not finite or not the shape")
     if attention_shapes != adm_counts.flash_shapes(config, ADM_BATCH):
@@ -3517,9 +3745,22 @@ def phase_adm(device):
                              f"{adm_counts.flash_shapes(config, ADM_BATCH)}")
     forward_ms = cuda_ms(forward, 5)
     log(f"phase 18: {IMAGE} px, batch {ADM_BATCH}: launches (flash, GroupNorm+SiLU forward, "
-        f"backward) {launches} in one forward, flash at head dim 64 on the mma.sync route "
-        f"(0 on wgmma); forward {forward_ms:.3f} ms between CUDA events")
-    del x, cond, out
+        f"backward) {launches} and {modulated} modulated GroupNorm+SiLU calls in one "
+        f"forward, flash at head dim 64 on the mma.sync route (0 on wgmma); forward "
+        f"{forward_ms:.3f} ms between CUDA events")
+    calls = modulated_calls(forward)
+    if len(calls) != ADM_MODULATED or modulated_copies(calls):
+        raise AssertionError(f"a forward made {len(calls)} modulated calls, want "
+                             f"{ADM_MODULATED}, and {modulated_copies(calls)} copies, want 0")
+    adm_modulated = check_modulated("phase 18", calls)
+    kernels = traced_kernels(forward)
+    moments = named(kernels, "RowwiseMomentsCUDAKernel")
+    log(f"phase 18: a traced forward launches {moments} PyTorch GroupNorm moments kernels "
+        f"(the 16 attention blocks' norms)")
+    if moments != 16:
+        raise AssertionError(f"a forward launched {moments} PyTorch GroupNorm moments kernels, "
+                             f"want the attention blocks' 16")
+    del x, cond, out, calls
 
     # the kernels at the forward's own shapes, each against its plain version
     errs = {}
@@ -3560,21 +3801,25 @@ def phase_adm(device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     sample_launches = counts()
+    sample_modulated = modulated_launches()
     graphs = (GraphedForward.captures, GraphedForward.replays, GraphedForward.eager)
     steps = (GaussianDiffusion.learned_range_steps - steps[0],
              GaussianDiffusion.final_steps - steps[1])
     want_launches = (16 * SAMPLER_STEPS, 43 * SAMPLER_STEPS, 0)
-    if (sample_launches, graphs, steps) != (want_launches, (0, SAMPLER_STEPS, 0),
-                                            (SAMPLER_STEPS - 1, 1)):
+    if (sample_launches, graphs, steps, sample_modulated) != (
+            want_launches, (0, SAMPLER_STEPS, 0), (SAMPLER_STEPS - 1, 1),
+            ADM_MODULATED * SAMPLER_STEPS):
         raise AssertionError(
             f"a {SAMPLER_STEPS}-step sample: launches {sample_launches}, want {want_launches}; "
+            f"modulated calls {sample_modulated}, want {ADM_MODULATED * SAMPLER_STEPS}; "
             f"captures, replays, eager {graphs}, want (0, {SAMPLER_STEPS}, 0); learned-range "
             f"and final steps {steps}, want ({SAMPLER_STEPS - 1}, 1)")
     if not torch.isfinite(sample).all() or flash_attention.launches_wgmma:
         raise AssertionError("the sample is not finite, or a flash call took the wgmma route")
     log(f"phase 18: sampler batch {ADM_BATCH}, {SAMPLER_STEPS} respaced steps, one graph replay "
-        f"each: launches (flash, GroupNorm+SiLU forward, backward) {sample_launches}; "
-        f"{wall * 1e3:.2f} ms on the host's clock")
+        f"each: launches (flash, GroupNorm+SiLU forward, backward) {sample_launches}, "
+        f"modulated GroupNorm+SiLU calls {sample_modulated}; {wall * 1e3:.2f} ms on the host's "
+        f"clock")
     del model, diffusion, condition, noise, sample
     torch.cuda.empty_cache()
     return (
@@ -3585,6 +3830,8 @@ def phase_adm(device):
         {"name": "adm_forward", "route": "cuda", "source": "fea_tpu_torch/models/adm.py",
          "ms": forward_ms, "batch": ADM_BATCH, "image": IMAGE,
          "launches_flash": launches[0], "launches_group_norm_silu_fwd": launches[1]},
+        dict(launches_adm_sample=sample_modulated,
+             **{f"{k}_adm": v for k, v in adm_modulated.items()}),
     )
 
 
@@ -3685,10 +3932,10 @@ def main():
         err, flash_ms = phase_kernel(device, earlier)
         log(f"phase 1 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        launches, linear_entry = phase_sampler(device)
+        launches, linear_entry, modulated_entry = phase_sampler(device)
         log(f"phase 2 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        phase_predictor(device)
+        predict_modulated = phase_predictor(device)
         log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         gn = phase_group_norm(device, earlier)
@@ -3722,10 +3969,10 @@ def main():
         full_attention = phase_full_attention(device, earlier)
         log(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        cli_fwd, cli_bwd = phase_cli(device, results)
+        cli_fwd, cli_bwd, cli_mod, cli_checked = phase_cli(device, results)
         log(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        dp_fwd, dp_bwd = phase_data_parallel(device, results)
+        dp_fwd, dp_bwd, dp_mod = phase_data_parallel(device, results)
         log(f"phase 14 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         phase_variants(device, results, plates_per_hour)
@@ -3737,7 +3984,7 @@ def main():
         phase_precision(device, results)
         log(f"phase 17 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        adm_flash, adm_gn, adm_entry = phase_adm(device)
+        adm_flash, adm_gn, adm_entry, adm_modulated = phase_adm(device)
         log(f"phase 18 done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)
@@ -3779,6 +4026,14 @@ def main():
             "redesigned": REDESIGNED["group_norm_silu_bwd"],
         },
         linear_entry,
+        {
+            "name": "group_norm_modulated_silu", "route": "cuda", "source": gn_source,
+            "replaces": "none: fea_tpu/models/blocks.py leaves the FDN's and the time "
+                        "scale-shift's GroupNorm chain to XLA",
+            **modulated_entry, **adm_modulated, **predict_modulated,
+            "launches_cli": cli_mod, "launches_dp": dp_mod, "checked_cli": cli_checked,
+            "design": MODULATED_DESIGN,
+        },
         adm_entry,
     ] + [dict(entry, launches=cg_launches[name]) for name, entry in cg_entries.items()]}))
     log(json.dumps({"ok": True, "device": {

@@ -57,6 +57,17 @@
 // Both use __expf and an approximate divide in the sigmoid, as the backward
 // does when it recomputes z's sigmoid.
 //
+// Modulated forward (no backward: it serves the calls that need no
+// gradient): y = silu(z (1 + scale) + shift), each kernel above
+// instantiated once more per mode (Mod). Per channel, scale and shift are
+// (B, C), at a batch stride of their own, and fold into the coefficients
+// where they are written, a' = a (1 + s), b' = b (1 + s) + t: the passes
+// over x do not change. Per pixel, scale and shift are contiguous (B, C,
+// H, W) like x and the pass that writes y reads them beside x, in the same
+// vectors and order (on the cluster route x from shared memory, scale and
+// shift from device memory). gamma and beta may be null there: the norm
+// without an affine (1 and 0).
+//
 // Backward: two launches over the forward's coef; the statistics are not
 // recomputed (fea_tpu's backward recomputes them: here the forward's are
 // saved, the same numbers from the same kernel).
@@ -248,6 +259,9 @@ int with_vector(int vec, F&& f) {
 
 // ---------------------------------------------------------------- forward
 
+// z's modulation before the SiLU: none, per (b, c), or per element
+enum class Mod { none, channel, pixel };
+
 struct FwdArgs {
   const void* x;
   void* y;
@@ -261,6 +275,9 @@ struct FwdArgs {
   int share;  // cluster: elements of the slab that each block takes,
   int held;   // and how many of them it keeps in shared memory
   float eps;
+  const void* scale;  // Mod::channel: (B, C) in x's type at batch strides
+  const void* shift;  // scale_sb, shift_sb; Mod::pixel: as x
+  long long scale_sb, shift_sb;
 };
 
 // mean and rstd of n elements from their sum and sum of squares
@@ -276,6 +293,27 @@ __device__ __forceinline__ float4 coefficients(float2 m, float gamma, float beta
   return make_float4(a, beta - m.x * a, m.x, m.y);
 }
 
+// The coefficients of channel c of batch element b from the group's mean
+// and rstd; under Mod::channel with the modulation folded in, so that
+// x a + b = (x a0 + b0) (1 + s) + t
+template <typename T, Mod M>
+__device__ __forceinline__ float4 channel_coef(const FwdArgs& a, float2 m, int b, int c) {
+  if constexpr (M == Mod::none) {
+    return coefficients(m, a.gamma[c], a.beta[c]);
+  } else {
+    float4 k = coefficients(m, a.gamma ? a.gamma[c] : 1.f, a.beta ? a.beta[c] : 0.f);
+    if constexpr (M == Mod::channel) {
+      float s[1], t[1];
+      load_vec<1>(static_cast<const T*>(a.scale) + b * a.scale_sb + c, s);
+      load_vec<1>(static_cast<const T*>(a.shift) + b * a.shift_sb + c, t);
+      const float f = s[0] + 1.f;
+      k.x *= f;
+      k.y = k.y * f + t[0];
+    }
+    return k;
+  }
+}
+
 // y = silu(x a + b) of V elements
 template <int V>
 __device__ __forceinline__ void silu_affine(const float (&x)[V], float a, float b,
@@ -285,6 +323,28 @@ __device__ __forceinline__ void silu_affine(const float (&x)[V], float a, float 
     const float z = x[j] * a + b;
     y[j] = z * sigmoid_fast(z);
   }
+}
+
+// y = silu(x a + b) of the V elements at x, under Mod::pixel silu((x a +
+// b) (1 + s) + t) with s and t the V elements at scale + i and shift + i
+template <typename T, int V, Mod M>
+__device__ __forceinline__ void emit_vec(const T* x, const FwdArgs& a, size_t i, float2 k,
+                                         T* y) {
+  float xv[V], out[V];
+  load_vec<V>(x, xv);
+  if constexpr (M == Mod::pixel) {
+    float s[V], t[V];
+    load_vec<V>(static_cast<const T*>(a.scale) + i, s);
+    load_vec<V>(static_cast<const T*>(a.shift) + i, t);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float z = (xv[j] * k.x + k.y) * (s[j] + 1.f) + t[j];
+      out[j] = z * sigmoid_fast(z);
+    }
+  } else {
+    silu_affine<V>(xv, k.x, k.y, out);
+  }
+  store_vec<V>(y, out);
 }
 
 template <int V>
@@ -346,7 +406,7 @@ constexpr int kCopyGroups = 4;
 // reads twice, for the sums and again, soon after and so mostly from L2,
 // for y. Thread t owns the vectors t, t + 512, ... of the share in every
 // pass.
-template <typename T>
+template <typename T, Mod M>
 __global__ void __launch_bounds__(kClusterThreads) fwd_cluster(FwdArgs a) {
   constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -416,18 +476,14 @@ __global__ void __launch_bounds__(kClusterThreads) fwd_cluster(FwdArgs a) {
   __syncthreads();
   const float2 m = group;
   for (int c = tid; c < cg; c += kClusterThreads) {
-    const float4 k = coefficients(m, a.gamma[g * cg + c], a.beta[g * cg + c]);
+    const float4 k = channel_coef<T, M>(a, m, b, g * cg + c);
     table[c] = make_float2(k.x, k.y);
     if (rank == 0) a.coef[static_cast<size_t>(b) * a.channels + g * cg + c] = k;
   }
   __syncthreads();
   // y of the vector v of the share, whose x is at p
   auto emit = [&](const T* p, int v) {
-    const float2 k = table[(e0 + v * V) / a.hw];
-    float xv[V], out[V];
-    load_vec<V>(p, xv);
-    silu_affine<V>(xv, k.x, k.y, out);
-    store_vec<V>(dst + v * V, out);
+    emit_vec<T, V, M>(p, a, off + v * V, table[(e0 + v * V) / a.hw], dst + v * V);
   };
 #pragma unroll 4
   for (int v = nheld + tid; v < nvec; v += kClusterThreads) emit(src + v * V, v);
@@ -456,31 +512,33 @@ struct ClusterLaunch {
 
 // The kernel allowed `smem` bytes of dynamic shared memory and, above the
 // portable 8, this cluster size.
-template <typename T>
+template <typename T, Mod M>
 cudaError_t allow_cluster(int cluster, int smem) {
   cudaError_t err =
-      cudaFuncSetAttribute(fwd_cluster<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(fwd_cluster<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && cluster > 8) {
-    err = cudaFuncSetAttribute(fwd_cluster<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(fwd_cluster<T, M>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
   }
   return err;
 }
 
-template <typename T>
+template <typename T, Mod M>
 int forward_cluster(const FwdArgs& a, int batch, int cluster, int smem, cudaStream_t stream) {
-  const cudaError_t err = allow_cluster<T>(cluster, smem);
+  const cudaError_t err = allow_cluster<T, M>(cluster, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   ClusterLaunch launch(cluster, a.groups, batch, smem, stream);
-  return static_cast<int>(cudaLaunchKernelEx(&launch.cfg, fwd_cluster<T>, a));
+  return static_cast<int>(cudaLaunchKernelEx(&launch.cfg, fwd_cluster<T, M>, a));
 }
 
 // Clusters of this size and shared memory that the card holds at once
 template <typename T>
 int resident_clusters(int cluster, int smem, int* count) {
-  const cudaError_t err = allow_cluster<T>(cluster, smem);
+  const cudaError_t err = allow_cluster<T, Mod::none>(cluster, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   ClusterLaunch launch(cluster, 1, 1, smem, nullptr);
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(count, fwd_cluster<T>, &launch.cfg));
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(count, fwd_cluster<T, Mod::none>, &launch.cfg));
 }
 
 // ------------------------------------------------ forward, two-pass route
@@ -489,7 +547,7 @@ int resident_clusters(int cluster, int smem, int* count) {
 // at a time (rows is a multiple of V, and so is HW where V > 1). The last
 // block of batch element b to finish sums b's partials, a warp per group
 // and in a fixed order, and writes coef[b].
-template <typename T, int V>
+template <typename T, int V, Mod M>
 __global__ void __launch_bounds__(kThreads) fwd_stats(FwdArgs a) {
   asm volatile("griddepcontrol.launch_dependents;");
   const int c = blockIdx.x, chunk = blockIdx.y, b = blockIdx.z;
@@ -526,13 +584,13 @@ __global__ void __launch_bounds__(kThreads) fwd_stats(FwdArgs a) {
     }
     const float2 m = mean_rstd(t0, t1, n, a.eps);
     for (int ch = g * cg + lane; ch < (g + 1) * cg; ch += 32) {
-      a.coef[static_cast<size_t>(b) * a.channels + ch] = coefficients(m, a.gamma[ch], a.beta[ch]);
+      a.coef[static_cast<size_t>(b) * a.channels + ch] = channel_coef<T, M>(a, m, b, ch);
     }
   }
 }
 
 // The same grid walked backwards, and each chunk from its end.
-template <typename T, int V>
+template <typename T, int V, Mod M>
 __global__ void __launch_bounds__(kThreads) fwd_apply(FwdArgs a) {
   const int c = gridDim.x - 1 - blockIdx.x;
   const int chunk = gridDim.y - 1 - blockIdx.y, b = gridDim.z - 1 - blockIdx.z;
@@ -546,34 +604,63 @@ __global__ void __launch_bounds__(kThreads) fwd_apply(FwdArgs a) {
   if (p0 >= p_end) return;
 #pragma unroll 4
   for (int p = p0 + (p_end - 1 - p0) / kStep * kStep; p >= p0; p -= kStep) {
-    float xv[V], out[V];
-    load_vec<V>(xc + p, xv);
-    silu_affine<V>(xv, k.x, k.y, out);
-    store_vec<V>(yc + p, out);
+    emit_vec<T, V, M>(xc + p, a, off + p, make_float2(k.x, k.y), yc + p);
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, Mod M>
 int forward_two_pass_v(const FwdArgs& a, int batch, int chunks, cudaStream_t stream) {
   const dim3 grid(a.channels, chunks, batch);
-  fwd_stats<T, V><<<grid, kThreads, 0, stream>>>(a);
+  fwd_stats<T, V, M><<<grid, kThreads, 0, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_dependent(fwd_apply<T, V>, grid, a, stream);
+  return launch_dependent(fwd_apply<T, V, M>, grid, a, stream);
 }
 
-template <typename T>
+template <typename T, Mod M>
 int forward_two_pass(const FwdArgs& a, int batch, int chunks, int vec, cudaStream_t stream) {
   return with_vector<T>(vec, [&](auto v) {
-    return forward_two_pass_v<T, decltype(v)::value>(a, batch, chunks, stream);
+    return forward_two_pass_v<T, decltype(v)::value, M>(a, batch, chunks, stream);
   });
 }
 
-template <typename T>
-int forward(const FwdArgs& a, int batch, int cluster, int smem, int chunks, int vec,
+template <Mod M>
+int forward(const FwdArgs& a, int batch, int cluster, int smem, int chunks, int vec, int bf16,
             cudaStream_t stream) {
-  return cluster > 0 ? forward_cluster<T>(a, batch, cluster, smem, stream)
-                     : forward_two_pass<T>(a, batch, chunks, vec, stream);
+  if (bf16) {
+    return cluster > 0 ? forward_cluster<__nv_bfloat16, M>(a, batch, cluster, smem, stream)
+                       : forward_two_pass<__nv_bfloat16, M>(a, batch, chunks, vec, stream);
+  }
+  return cluster > 0 ? forward_cluster<float, M>(a, batch, cluster, smem, stream)
+                     : forward_two_pass<float, M>(a, batch, chunks, vec, stream);
+}
+
+// The forward's arguments; scale and shift as FwdArgs has them
+FwdArgs forward_args(const void* x, const float* gamma, const float* beta, void* y, void* coef,
+                     void* partial, void* tickets, int channels, int hw, int groups,
+                     int cluster, int smem, int rows, int bf16, float eps, const void* scale,
+                     const void* shift, long long scale_sb, long long shift_sb) {
+  const int cg = channels / groups;
+  const int share = cluster > 0 ? cg * hw / cluster : 0;
+  const int held = cluster > 0 ? (smem - table_bytes(cg)) / (bf16 ? 2 : 4) : 0;
+  return FwdArgs{x,
+                 y,
+                 gamma,
+                 beta,
+                 static_cast<float4*>(coef),
+                 static_cast<float2*>(partial),
+                 static_cast<unsigned int*>(tickets),
+                 channels,
+                 hw,
+                 groups,
+                 rows,
+                 share,
+                 held < share ? held : share,
+                 eps,
+                 scale,
+                 shift,
+                 scale_sb,
+                 shift_sb};
 }
 
 // --------------------------------------------------------------- backward
@@ -760,26 +847,36 @@ int fea_group_norm_silu_fwd(const void* x, const float* gamma, const float* beta
                             void* coef, void* partial, void* tickets, int batch, int channels,
                             int hw, int groups, int cluster, int smem, int chunks, int rows,
                             int vec, int bf16, float eps, void* stream) {
-  const int cg = channels / groups;
-  const int share = cluster > 0 ? cg * hw / cluster : 0;
-  const int held = cluster > 0 ? (smem - table_bytes(cg)) / (bf16 ? 2 : 4) : 0;
-  const FwdArgs a{x,
-                  y,
-                  gamma,
-                  beta,
-                  static_cast<float4*>(coef),
-                  static_cast<float2*>(partial),
-                  static_cast<unsigned int*>(tickets),
-                  channels,
-                  hw,
-                  groups,
-                  rows,
-                  share,
-                  held < share ? held : share,
-                  eps};
+  const FwdArgs a = forward_args(x, gamma, beta, y, coef, partial, tickets, channels, hw, groups,
+                                 cluster, smem, rows, bf16, eps, nullptr, nullptr, 0, 0);
+  return forward<Mod::none>(a, batch, cluster, smem, chunks, vec, bf16,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// y = silu((GroupNorm(x) gamma + beta) (1 + scale) + shift), by the routes
+// and with the arguments of fea_group_norm_silu_fwd; gamma and beta may
+// both be null (no affine). mode 1: scale and shift (batch, channels) in
+// x's type, element (b, c) at b * scale_sb + c (shift_sb); mode 2: scale
+// and shift contiguous like x and, where vec is above 1 or the cluster
+// route is taken, aligned to vec elements as x is. coef is written as the
+// forward writes it, with the per-channel modulation folded into (a, b).
+int fea_group_norm_silu_fwd_modulated(const void* x, const float* gamma, const float* beta,
+                                      const void* scale, const void* shift, long long scale_sb,
+                                      long long shift_sb, int mode, void* y, void* coef,
+                                      void* partial, void* tickets, int batch, int channels,
+                                      int hw, int groups, int cluster, int smem, int chunks,
+                                      int rows, int vec, int bf16, float eps, void* stream) {
+  const FwdArgs a = forward_args(x, gamma, beta, y, coef, partial, tickets, channels, hw, groups,
+                                 cluster, smem, rows, bf16, eps, scale, shift, scale_sb,
+                                 shift_sb);
   auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? forward<__nv_bfloat16>(a, batch, cluster, smem, chunks, vec, s)
-              : forward<float>(a, batch, cluster, smem, chunks, vec, s);
+  switch (mode) {
+    case 1:
+      return forward<Mod::channel>(a, batch, cluster, smem, chunks, vec, bf16, s);
+    case 2:
+      return forward<Mod::pixel>(a, batch, cluster, smem, chunks, vec, bf16, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // *count: the clusters of `cluster` blocks with `smem` bytes of dynamic

@@ -29,7 +29,8 @@ the ones here):
 
 The in-layers' GroupNorm+SiLU (and the output's) run the port's fused
 kernel (`ops.fused_norm.group_norm_silu`, 32 groups, eps 1e-5); the
-out-layers' GroupNorm under the scale-shift is PyTorch's; attention runs
+out-layers' GroupNorm, scale-shift and SiLU run its modulated forward
+where no gradient is needed (`blocks.modulated_norm_silu`); attention runs
 the flash kernel (`ops.flash_attention.flash_attention`) at head dim 64.
 CPU tensors take the kernels' plain versions.
 
@@ -56,6 +57,7 @@ from torch import nn
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_norm import group_norm_silu
 from . import graphed
+from .blocks import modulated_norm_silu
 from .initializers import materialize
 
 GROUPS = 32
@@ -113,8 +115,8 @@ class ResBlock(nn.Module):
         x = self._resample(x)
         scale, shift = self.emb_layers(emb)[..., None, None].chunk(2, dim=1)
         norm = self.out_layers[0]
-        h = F.group_norm(h, GROUPS, norm.weight, norm.bias, EPS) * (1 + scale) + shift
-        h = self.out_layers[3](F.silu(h))
+        h = modulated_norm_silu(h, norm.weight, norm.bias, scale, shift, GROUPS, EPS)
+        h = self.out_layers[3](h)
         return self.skip_connection(x) + h
 
 

@@ -13,9 +13,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_norm import group_norm_silu
+from ..ops.fused_norm import (
+    group_norm_modulated_silu, group_norm_modulated_silu_reference, group_norm_silu, needs_grad,
+)
 
 GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm's epsilon; torch's default is 1e-5
+
+
+def modulated_norm_silu(x, gamma, beta, scale, shift, num_groups: int, eps: float):
+    """silu(GroupNorm(x, gamma, beta) * (scale + 1) + shift): the fused
+    forward where no gradient is needed (its CUDA kernel for CUDA tensors),
+    else PyTorch's chain, through which autograd runs."""
+    fn = (group_norm_modulated_silu_reference if needs_grad(x, gamma, beta, scale, shift)
+          else group_norm_modulated_silu)
+    return fn(x, gamma, beta, scale, shift, num_groups, eps)
 
 
 def conv3x3(in_dim: int, out_dim: int) -> nn.Conv2d:
@@ -62,7 +73,7 @@ class Upsample(nn.Module):
 
 class FeatureDenormalization(nn.Module):
     """Parameter-free GroupNorm, then per-pixel scale/shift predicted from
-    condition features by 3x3 convs, then SiLU."""
+    condition features by 3x3 convs, then SiLU (`modulated_norm_silu`)."""
 
     def __init__(self, dim: int, feature_dim: int, num_groups: int = 8):
         super().__init__()
@@ -73,10 +84,9 @@ class FeatureDenormalization(nn.Module):
     def forward(self, x, features):
         if features.shape[2:] != x.shape[2:]:
             raise ValueError("features must share spatial dims with x")
-        x = F.group_norm(x, self.num_groups, eps=GROUP_NORM_EPS)
         scale = self.scale_conv(features)
         shift = self.shift_conv(features)
-        return F.silu(x * (scale + 1.0) + shift)
+        return modulated_norm_silu(x, None, None, scale, shift, self.num_groups, GROUP_NORM_EPS)
 
 
 class ConditionFeatureExtractor(nn.Module):
@@ -135,7 +145,8 @@ class LeanResnetSubBlock(nn.Module):
 class ResnetSubBlock(nn.Module):
     """Conv + GroupNorm + SiLU. Without a time scale-shift the norm, affine
     and SiLU are one fused op (ops/fused_norm.py: the CUDA kernels on the
-    card), computing what flax's GroupNorm then silu compute."""
+    card), computing what flax's GroupNorm then silu compute; with one,
+    `modulated_norm_silu`."""
 
     def __init__(self, in_dim: int, output_dim: int, num_groups: int = 8):
         super().__init__()
@@ -148,7 +159,8 @@ class ResnetSubBlock(nn.Module):
         if scale_shift is None:
             return group_norm_silu(x, norm.weight, norm.bias, norm.num_groups, norm.eps)
         scale, shift = scale_shift
-        return F.silu(norm(x) * (scale + 1.0) + shift)
+        return modulated_norm_silu(x, norm.weight, norm.bias, scale, shift, norm.num_groups,
+                                   norm.eps)
 
 
 class ConditionedResnetBlock(nn.Module):

@@ -27,6 +27,15 @@ its per-channel coefficients (a, b, mean, rstd) beside x and gamma (B * C *
 16 bytes a call), and the backward reads them: the same numbers, from the
 same kernel, and one pass over x fewer. The backward returns dx in x's type
 and dgamma, dbeta in gamma's type.
+
+`group_norm_modulated_silu` is the forward alone with a modulation before
+the SiLU, y = silu((GroupNorm(x) gamma + beta) (1 + scale) + shift), for the
+calls that need no gradient: the FDN's per-pixel scale and shift (no
+affine), and the time embedding's per-(b, c) scale and shift. The same
+kernels take it, by the same routes; per channel the modulation folds into
+the coefficients, per pixel the pass that writes y reads scale and shift
+beside x. `group_norm_modulated_silu_reference` is the blocks' own
+expression, which CPU tensors and every call that needs a gradient take.
 """
 
 import ctypes
@@ -61,6 +70,8 @@ STATIC_SHARED_BYTES = 512
 _p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 LIBRARY = bind("fea_group_norm_silu", ["group_norm_silu.cu"], {
     "fea_group_norm_silu_fwd": ([_p] * 7 + [_i] * 10 + [_f, _p], _i),
+    "fea_group_norm_silu_fwd_modulated": (
+        [_p] * 5 + [_ll] * 2 + [_i] + [_p] * 4 + [_i] * 10 + [_f, _p], _i),
     "fea_group_norm_silu_fwd_resident_clusters": ([_i, _i, _i, ctypes.POINTER(_i)], _i),
     "fea_group_norm_silu_bwd": ([_p] * 12 + [_i] * 7 + [_ll] * 3 + [_i, _p], _i),
 })
@@ -92,17 +103,23 @@ def _layout(x):
     check_contiguous("group_norm_silu", {"x": x})
 
 
-def _check_cuda_inputs(x, gamma, beta, num_groups):
-    check_device("group_norm_silu", {"x": x, "gamma": gamma, "beta": beta})
-    if x.dtype not in DTYPES or gamma.dtype not in DTYPES or beta.dtype not in DTYPES:
-        raise TypeError(
-            f"group_norm_silu takes float32 or bfloat16; got {x.dtype}, "
-            f"{gamma.dtype}, {beta.dtype}"
-        )
+def _check_cuda_inputs(x, gamma, beta, num_groups, kernel="group_norm_silu", **modulation):
+    """Raises unless x (B, C, H, W), gamma and beta (C,) (both None: the
+    modulated forward's norm without affine) and the tensors of
+    `modulation` lie on one CUDA device, in float32 or bfloat16, and C
+    splits into num_groups groups."""
+    if (gamma is None) != (beta is None):
+        raise ValueError(f"{kernel} takes gamma and beta both or neither")
+    affine = {} if gamma is None else {"gamma": gamma, "beta": beta}
+    tensors = {"x": x, **affine, **modulation}
+    check_device(kernel, tensors)
+    if any(t.dtype not in DTYPES for t in tensors.values()):
+        raise TypeError(f"{kernel} takes float32 or bfloat16; got "
+                        f"{', '.join(str(t.dtype) for t in tensors.values())}")
     if x.ndim != 4 or min(x.shape) < 1:
-        raise ValueError(f"group_norm_silu takes non-empty (B, C, H, W); got {tuple(x.shape)}")
+        raise ValueError(f"{kernel} takes non-empty (B, C, H, W); got {tuple(x.shape)}")
     c = x.shape[1]
-    if gamma.shape != (c,) or beta.shape != (c,):
+    if affine and (gamma.shape != (c,) or beta.shape != (c,)):
         raise ValueError(
             f"gamma {tuple(gamma.shape)} and beta {tuple(beta.shape)} are not ({c},)"
         )
@@ -199,10 +216,12 @@ def forward_route(batch, channels, hw, groups, size, address, sms, smem_limit) -
     return ForwardPlan("two_pass", vec, 0, 0, chunks, rows)
 
 
-def forward_plan(x, num_groups) -> ForwardPlan:
-    """`forward_route` of a CUDA tensor x (B, C, H, W) on its device."""
+def forward_plan(x, num_groups, address=None) -> ForwardPlan:
+    """`forward_route` of a CUDA tensor x (B, C, H, W) on its device; the
+    vectors aligned as `address` is (x's own where None)."""
     b, c, h, w = x.shape
-    return forward_route(b, c, h * w, num_groups, x.element_size(), x.data_ptr(),
+    return forward_route(b, c, h * w, num_groups, x.element_size(),
+                         x.data_ptr() if address is None else address,
                          *_device_limits(x.device.index or 0))
 
 
@@ -229,23 +248,34 @@ def resident_clusters(plan, x) -> int:
     return count.value
 
 
-def _launch_forward(x, gamma, beta, num_groups, eps, plan):
-    """y, and coef (B, C, 4) f32: (a, b, mean, rstd) with z = x a + b, by
-    the route and sizes of `plan`."""
-    b, c, h, w = x.shape
+def _forward_outputs(x, plan):
+    """y, coef (B, C, 4) f32, and the two-pass route's partial sums and
+    tickets (None on the cluster route) of one forward call."""
+    b, c = x.shape[:2]
     coef = torch.empty((b, c, 4), device=x.device, dtype=torch.float32)
-    gamma32, beta32 = gamma.float().contiguous(), beta.float().contiguous()
     y = torch.empty_like(x)
     partial = tickets = None
     if plan.route == "two_pass":
         partial = torch.empty((b, plan.chunks, c, 2), device=x.device, dtype=torch.float32)
         # this call's last-block tickets, as the backward takes its own
         tickets = torch.zeros(b, device=x.device, dtype=torch.int32)
+    return y, coef, partial, tickets
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_forward(x, gamma, beta, num_groups, eps, plan):
+    """y, and coef (B, C, 4) f32: (a, b, mean, rstd) with z = x a + b, by
+    the route and sizes of `plan`."""
+    b, c, h, w = x.shape
+    gamma32, beta32 = gamma.float().contiguous(), beta.float().contiguous()
+    y, coef, partial, tickets = _forward_outputs(x, plan)
     with torch.cuda.device(x.device):
         err = LIBRARY.lib.fea_group_norm_silu_fwd(
             x.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), y.data_ptr(), coef.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            None if tickets is None else tickets.data_ptr(),
+            _ptr(partial), _ptr(tickets),
             b, c, h * w, num_groups, plan.cluster, plan.smem_bytes, plan.chunks, plan.rows,
             plan.vec, int(x.dtype == torch.bfloat16), eps,
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -332,3 +362,109 @@ def group_norm_silu(x, gamma, beta, num_groups: int = 8, eps: float = 1e-6):
 
 group_norm_silu.launches_fwd = 0
 group_norm_silu.launches_bwd = 0
+
+
+# ---- the modulated forward ----------------------------------------------
+
+MODES = {"channel": 1, "pixel": 2}  # the kernel's modulation modes
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on `tensors` (None among them
+    allowed): grad mode on and one of them requiring grad. Where it would,
+    the blocks take `group_norm_modulated_silu_reference`, and
+    `group_norm_modulated_silu` raises."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def group_norm_modulated_silu_reference(x, gamma, beta, scale, shift, num_groups: int = 8,
+                                        eps: float = 1e-6):
+    """The plain version, the blocks' own expression: PyTorch's GroupNorm
+    (with its affine where gamma and beta are given), times (scale + 1),
+    plus shift, then SiLU."""
+    return F.silu(F.group_norm(x, num_groups, gamma, beta, eps) * (scale + 1.0) + shift)
+
+
+def modulation(x, scale, shift) -> str:
+    """"channel" for scale and shift (B, C, 1, 1), "pixel" for scale and
+    shift of x's shape (B, C, H, W), both in x's type; raises on any other
+    shapes or types."""
+    if scale.dtype != x.dtype or shift.dtype != x.dtype:
+        raise TypeError(f"group_norm_modulated_silu takes scale and shift in x's {x.dtype}; "
+                        f"got {scale.dtype}, {shift.dtype}")
+    if x.ndim == 4 and scale.shape == shift.shape:
+        if scale.shape == (*x.shape[:2], 1, 1):
+            return "channel"
+        if scale.shape == x.shape:
+            return "pixel"
+    raise ValueError(f"scale {tuple(scale.shape)} and shift {tuple(shift.shape)} are not both "
+                     f"(B, C, 1, 1) or (B, C, H, W) of x {tuple(x.shape)}")
+
+
+def _check_modulated(x, gamma, beta, scale, shift, num_groups, mode):
+    """Raises unless the CUDA kernels take these tensors in `mode`, once x
+    and per-pixel scale and shift are contiguous."""
+    kernel = "group_norm_modulated_silu"
+    _check_cuda_inputs(x, gamma, beta, num_groups, kernel, scale=scale, shift=shift)
+    if mode == "channel":
+        if scale.stride(1) != 1 or shift.stride(1) != 1:
+            raise ValueError(f"{kernel} takes per-channel scale and shift with channel stride "
+                             f"1; got strides {scale.stride()}, {shift.stride()}")
+    if needs_grad(x, gamma, beta, scale, shift):
+        # the kernel has no backward: training would lose the gradients
+        raise RuntimeError(f"{kernel} has no backward; call it under torch.no_grad() or on "
+                           f"tensors that do not require grad")
+
+
+def _launch_modulated(x, gamma, beta, scale, shift, mode, num_groups, eps, plan):
+    """y of the modulated forward by the route and sizes of `plan`."""
+    b, c, h, w = x.shape
+    affine = [None, None] if gamma is None else [gamma.float().contiguous(),
+                                                 beta.float().contiguous()]
+    y, coef, partial, tickets = _forward_outputs(x, plan)
+    with torch.cuda.device(x.device):
+        err = LIBRARY.lib.fea_group_norm_silu_fwd_modulated(
+            x.data_ptr(), *map(_ptr, affine), scale.data_ptr(), shift.data_ptr(),
+            scale.stride(0), shift.stride(0), MODES[mode], y.data_ptr(), coef.data_ptr(),
+            _ptr(partial), _ptr(tickets),
+            b, c, h * w, num_groups, plan.cluster, plan.smem_bytes, plan.chunks, plan.rows,
+            plan.vec, int(x.dtype == torch.bfloat16), eps,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    LIBRARY.check(err, f"group_norm_modulated_silu launch ({mode}, {plan.route})")
+    return y
+
+
+def group_norm_modulated_silu(x, gamma, beta, scale, shift, num_groups: int = 8,
+                              eps: float = 1e-6):
+    """silu((GroupNorm(x) gamma + beta) (1 + scale) + shift) for x (B, C, H,
+    W), gamma and beta (C,) or both None (no affine), and scale and shift
+    (B, C, 1, 1) (per channel, channel stride 1) or (B, C, H, W) (per
+    pixel), in x's type. Forward only: a call that needs a gradient raises.
+    CUDA tensors go through the CUDA kernels, and
+    `group_norm_modulated_silu.launches` counts their calls (a call
+    recorded in a CUDA graph at each replay); CPU tensors go through the
+    plain version.
+
+    On the card y is contiguous NCHW, as PyTorch's GroupNorm and the
+    elementwise ops after it leave it there. The kernels take x and
+    per-pixel scale and shift contiguous too: where one is not (the FDN's
+    first stage hands over channels-last tensors, convolutions' outputs on
+    the model's NHWC input), it is copied first."""
+    mode = modulation(x, scale, shift)
+    tensors = [t for t in (x, gamma, beta, scale, shift) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return group_norm_modulated_silu_reference(x, gamma, beta, scale, shift, num_groups, eps)
+    _check_modulated(x, gamma, beta, scale, shift, num_groups, mode)
+    x = x.contiguous()
+    if mode == "pixel":
+        scale, shift = scale.contiguous(), shift.contiguous()
+    # per pixel, the vectors are aligned for x, scale and shift at once
+    address = x.data_ptr() | scale.data_ptr() | shift.data_ptr() if mode == "pixel" else None
+    y = _launch_modulated(x, gamma, beta, scale, shift, mode, num_groups, eps,
+                          forward_plan(x, num_groups, address))
+    graphs.count(group_norm_modulated_silu)
+    return y
+
+
+group_norm_modulated_silu.launches = 0
