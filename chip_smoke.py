@@ -215,6 +215,22 @@ Phase 18: ADM (guided-diffusion's 256 px UNet, fea_tpu_torch/models/adm.py)
          within F32_TOL; a 25-step `GaussianDiffusion.sample`, counted from
          just before it: 400 flash and 1,075 GroupNorm+SiLU launches, 25
          graph replays, 24 learned-range steps and one final step.
+Phase 19: DiT-XL (fea_tpu_torch/models/dit.py: 28 adaLN-Zero blocks of
+         1152, 16 heads of 72, 256 px in patches of 8) from
+         make_dit_diffusion_model, every parameter drawn from a seed (the
+         ones DiT initializes to zero too): at batch 2 one forward with
+         TF32 off within DIT_IEEE_REL of the benchmark's plain reference
+         (portbench/reference/dit.py, strict f32) and one at DiT's TF32
+         within the `dit-xl-p8-256-concat` configuration's pred_gap; 28
+         flash launches a forward, all f32 at head dim 72
+         (`launches_d72`, none on the wgmma route), at the shapes
+         counts/dit.py gives; device ms a forward; flash at (32, 1024,
+         1024, 72) against the plain version within F32_TOL, timed beside
+         it and F.scaled_dot_product_attention, with its bound; a 25-step
+         `GaussianDiffusion.sample`, counted from just before it: 700
+         flash launches, 700 of them at D 72, 25 graph replays, 24
+         learned-range steps and one final step; the FEM's strict-f32
+         matmul check passes after it.
 
 Phases 2, 3, 5, 6, 7, 11, 12, 13 and 14 print the precision the model's
 convolutions ran at, read at every nn.Conv2d by a global module hook over
@@ -229,7 +245,7 @@ checkout's fea_tpu_torch/_build.
 
 The stores (about 7.6 GB at the production count), the checkpoints and
 the datagen trees are written under results/chip_smoke/ and deleted at
-the end. `--only 9,10,11` runs only those phases (any of 1 to 18; the
+the end. `--only 9,10,11` runs only those phases (any of 1 to 19; the
 card's name and power limit after them, no result line; phase 15 prints
 phase 10's plates per hour where 10 runs before it, phase 7 phase 5's ms
 per step).
@@ -415,6 +431,7 @@ def reset_counts():
     from fea_tpu_torch.ops.linear_attention import linear_attention
 
     flash_attention.launches = flash_attention.launches_wgmma = 0
+    flash_attention.launches_d72 = 0
     linear_attention.launches = 0
     group_norm_silu.launches_fwd = group_norm_silu.launches_bwd = 0
     group_norm_modulated_silu.launches = 0
@@ -3835,12 +3852,191 @@ def phase_adm(device):
     )
 
 
+DIT_BATCH = 2
+DIT_IEEE_REL = 1e-4  # one f32 forward in other orders, flash's 3xTF32 products
+DIT_FLASH_CALLS = 28  # one a block
+
+
+def phase_dit(device):
+    """Phase 19: DiT-XL at its published widths against the plain
+    reference at 256 px; its flash calls and device ms a forward, flash at
+    the forward's shape against its plain version and timed, and the
+    launches of a 25-step sample. Returns the kernels line's DiT entries:
+    flash's (launches a sample, the largest error, ms and bound ms at the
+    forward's shape) and the forward's own."""
+    from fea_tpu_torch.fem.problem import _require_true_f32
+    from fea_tpu_torch.models import dit, make_dit_diffusion_model
+    from fea_tpu_torch.models.diffusion import GaussianDiffusion
+    from fea_tpu_torch.models.graphed import GraphedForward
+    from fea_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference, route)
+    from fea_tpu_torch.utils.precision import model_precision
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from portbench import harness
+    from portbench.counts import dit as dit_counts
+    from portbench.counts.kernels import flash_call
+    from portbench.reference import dit as ref_dit
+    from portbench.reference.fdnunet import strict_f32
+    from portbench.reference.weights import make_weights
+
+    config = harness.load_json(harness.ROOT / "configs" / "dit-xl-p8-256-concat.json")
+    spec = config["model"]
+    generator = torch.Generator(device=device).manual_seed(SEED + 19)
+    diffusion = make_dit_diffusion_model(
+        spec["image_size"], spec["timesteps"], spec["beta_schedule"], device=device,
+        generator=generator, patch_size=spec["patch_size"],
+        in_channels=spec["num_channels"] + spec["num_auxiliary_condition_channels"],
+        out_channels=2 * spec["num_channels"], hidden_size=spec["hidden_size"],
+        depth=spec["depth"], num_heads=spec["num_heads"], mlp_ratio=spec["mlp_ratio"])
+    model = diffusion.model.eval()
+    weights = make_weights(ref_dit.build(config), SEED + 19, device)["model"]
+    missing, unexpected = model.load_state_dict(weights, strict=False)
+    if missing != ["pos_embed"] or unexpected:
+        raise AssertionError(f"DiT's state dict is not the reference's: missing {missing}, "
+                             f"unexpected {unexpected}")
+    zeros = [n for n, p in model.named_parameters() if not p.abs().max()]
+    if zeros:
+        raise AssertionError(f"parameters left at zero: {zeros}")
+    log(f"phase 19: DiT, {sum(p.numel() for p in model.parameters())} parameters, "
+        f"every one drawn from the seed")
+
+    rng = np.random.default_rng(SEED + 1)
+    x, cond = (torch.from_numpy(rng.normal(size=(DIT_BATCH, IMAGE, IMAGE, c))
+                                .astype(np.float32)).to(device) for c in (2, 5))
+    t = torch.tensor([999.0, 416.0], device=device)
+    reference = ref_dit.build(config)["model"]
+    reference.load_state_dict(
+        dict(weights, pos_embed=ref_dit.pos_embed(config).to(device, torch.float32)),
+        assign=True)
+    restore = strict_f32()
+    try:
+        with torch.no_grad():
+            want = reference.eval()(x, cond, t)
+    finally:
+        restore()
+    del reference, weights
+    gaps = {}
+    for precision in ("ieee", "tf32"):
+        with torch.no_grad(), model_precision(conv=precision, matmul=precision):
+            got = model(x, cond, t)
+        gaps[precision] = rel_err(got, want)
+    limit = config["correct_limits"]["pred_gap"]
+    log(f"phase 19: {IMAGE} px, batch {DIT_BATCH}: against the plain reference (strict f32), "
+        f"max abs diff over max abs: ieee {gaps['ieee']:.3e} (tolerance {DIT_IEEE_REL}), "
+        f"tf32 {gaps['tf32']:.3e} (tolerance {limit}, the configuration's pred_gap)")
+    if gaps["ieee"] > DIT_IEEE_REL or gaps["tf32"] > limit:
+        raise AssertionError(f"DiT and its plain reference differ: {gaps}")
+    del want, got
+
+    # every flash call's (BH, Nq, Nk, D), read where DiT calls the kernel
+    attention_shapes = []
+    flash = dit.flash_attention
+
+    def recording_flash(q, k, v, *args):
+        attention_shapes.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2]))
+        return flash(q, k, v, *args)
+
+    forward = model_precision(matmul=model.matmul_precision)(
+        torch.no_grad()(lambda: model(x, cond, t)))
+    with mock.patch.object(dit, "flash_attention", recording_flash):
+        forward()  # warm-up: cuDNN and cuBLAS pick their algorithms
+        torch.cuda.synchronize()
+        reset_counts()
+        del attention_shapes[:]
+        out = forward()
+        torch.cuda.synchronize()
+    launches = (flash_attention.launches, flash_attention.launches_d72,
+                flash_attention.launches_wgmma)
+    if launches != (DIT_FLASH_CALLS, DIT_FLASH_CALLS, 0):
+        raise AssertionError(f"flash launches, at D 72, on wgmma {launches}, want "
+                             f"({DIT_FLASH_CALLS}, {DIT_FLASH_CALLS}, 0)")
+    if out.shape != (DIT_BATCH, IMAGE, IMAGE, 4) or not torch.isfinite(out).all():
+        raise AssertionError(f"output {tuple(out.shape)} is not finite or not the shape")
+    want_shapes = dit_counts.flash_shapes(config, DIT_BATCH)
+    if attention_shapes != want_shapes:
+        raise AssertionError(f"flash shapes {attention_shapes} are not the reference's "
+                             f"{want_shapes}")
+    forward_ms = cuda_ms(forward, 5)
+    log(f"phase 19: {IMAGE} px, batch {DIT_BATCH}: {launches[0]} flash launches in one "
+        f"forward, {launches[1]} at head dim 72 on the {route(torch.float32, 72)} route "
+        f"({launches[2]} on wgmma); forward {forward_ms:.3f} ms between CUDA events")
+    del out
+
+    # the kernel at the forward's own shape, against its plain version
+    (shape,) = set(attention_shapes)
+    q, k, v = qkv(shape, device, SEED)
+    scale = shape[3] ** -0.5
+    got = flash_attention(q, k, v, scale)
+    want = flash_attention_reference(q, k, v, scale)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    err = max_abs_err(got, want)
+    ms = in_turns({
+        "kernel": lambda: flash_attention(q, k, v, scale),
+        "plain": lambda: flash_attention_reference(q, k, v, scale),
+        "library": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+    }, 50)
+    ops, nbytes = flash_call(*shape)
+    bound, bound_by = bound_ms(nbytes, ops, TF32_TENSOR_FLOPS)
+    log(f"phase 19: flash {shape} f32: max abs err vs plain {err:.3e} (tolerance {F32_TOL}); "
+        f"kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+        f"scaled_dot_product_attention {ms['library']:.4f} ms per call; bound {bound:.4f} ms "
+        f"({bound_by})")
+    del q, k, v, got, want
+
+    # the sampler's own loop: 25 respaced steps, each one graph replay
+    rng = np.random.default_rng(SEED + 2)
+    condition = torch.from_numpy(rng.normal(size=(DIT_BATCH, IMAGE, IMAGE, 5))
+                                 .astype(np.float32)).to(device)
+    noise = torch.from_numpy(rng.normal(size=(SAMPLER_STEPS + 1, DIT_BATCH, IMAGE, IMAGE, 2))
+                             .astype(np.float32)).to(device)
+    diffusion.sample(condition, 2, noise=noise[:3])  # warm-up: the capture
+    torch.cuda.synchronize()
+    reset_counts()
+    GraphedForward.captures = GraphedForward.replays = GraphedForward.eager = 0
+    steps = (GaussianDiffusion.learned_range_steps, GaussianDiffusion.final_steps)
+    t0 = time.perf_counter()
+    sample = diffusion.sample(condition, SAMPLER_STEPS, noise=noise)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sample_launches = (flash_attention.launches, flash_attention.launches_d72,
+                       flash_attention.launches_wgmma)
+    graphs = (GraphedForward.captures, GraphedForward.replays, GraphedForward.eager)
+    steps = (GaussianDiffusion.learned_range_steps - steps[0],
+             GaussianDiffusion.final_steps - steps[1])
+    calls = DIT_FLASH_CALLS * SAMPLER_STEPS
+    if (sample_launches, graphs, steps) != (
+            (calls, calls, 0), (0, SAMPLER_STEPS, 0), (SAMPLER_STEPS - 1, 1)):
+        raise AssertionError(
+            f"a {SAMPLER_STEPS}-step sample: flash launches, at D 72, on wgmma "
+            f"{sample_launches}, want ({calls}, {calls}, 0); captures, replays, eager {graphs}, "
+            f"want (0, {SAMPLER_STEPS}, 0); learned-range and final steps {steps}, want "
+            f"({SAMPLER_STEPS - 1}, 1)")
+    if not torch.isfinite(sample).all():
+        raise AssertionError("the DiT sample is not finite")
+    _require_true_f32()  # the sample handed the caller's strict matmuls back
+    log(f"phase 19: sampler batch {DIT_BATCH}, {SAMPLER_STEPS} respaced steps, one graph replay "
+        f"each: flash launches {sample_launches[0]}, launches_d72 {sample_launches[1]}, "
+        f"launches_wgmma {sample_launches[2]}; {wall * 1e3:.2f} ms on the host's clock; the "
+        f"FEM's strict-f32 matmul check passes after it")
+    del model, diffusion, condition, noise, sample
+    torch.cuda.empty_cache()
+    return (
+        dict(launches_dit_sample=sample_launches[0], launches_d72_dit_sample=sample_launches[1],
+             max_abs_err_dit=err, ms_dit=ms["kernel"], plain_ms_dit=ms["plain"],
+             library_ms_dit=ms["library"], bound_ms_dit=bound, shape_dit=list(shape)),
+        {"name": "dit_forward", "route": "cuda", "source": "fea_tpu_torch/models/dit.py",
+         "ms": forward_ms, "batch": DIT_BATCH, "image": IMAGE,
+         "launches_flash": launches[0], "launches_flash_d72": launches[1]},
+    )
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", metavar="TREE",
                         help="also time the kernels of this checkout, as `earlier`")
     parser.add_argument("--only", metavar="PHASES",
-                        help="run only these phases (comma-separated numbers, 1 to 18); "
+                        help="run only these phases (comma-separated numbers, 1 to 19); "
                              "such a partial run prints no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -3920,8 +4116,10 @@ def main():
                     phase_precision(device, results)
                 elif n == 18:
                     phase_adm(device)
+                elif n == 19:
+                    phase_dit(device)
                 else:
-                    raise SystemExit(f"--only takes the phases 1 to 18, not {n}")
+                    raise SystemExit(f"--only takes the phases 1 to 19, not {n}")
                 log(f"phase {n} done in {time.perf_counter() - t0:.1f} s")
             log(nvidia_smi())
         finally:
@@ -3986,6 +4184,9 @@ def main():
         t0 = time.perf_counter()
         adm_flash, adm_gn, adm_entry, adm_modulated = phase_adm(device)
         log(f"phase 18 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dit_flash, dit_entry = phase_dit(device)
+        log(f"phase 19 done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)
 
@@ -4010,6 +4211,7 @@ def main():
             "library_ms": flash_ms["library"], "bound_unit": "tensor cores, TF32 at 495 TFLOP/s",
             **({"earlier_ms": flash_ms["earlier"]} if earlier is not None else {}),
             "redesigned": REDESIGNED["flash_attention"], **full_attention, **adm_flash,
+            **dit_flash,
         },
         {
             "name": "group_norm_silu_fwd", "route": "cuda", "source": gn_source,
@@ -4035,6 +4237,7 @@ def main():
             "design": MODULATED_DESIGN,
         },
         adm_entry,
+        dit_entry,
     ] + [dict(entry, launches=cg_launches[name]) for name, entry in cg_entries.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -4,15 +4,17 @@
 // (launched by _flash_attention). It computes
 //     out = softmax((q * scale) k^T) v
 // for q (BH, Nq, D) and k, v (BH, Nk, D), with Nk free to differ from Nq
-// (FullAttention prepends learned memory-KV slots), D in {32, 64, 128}.
-// Inputs are f32 or bf16 and the output has q's type. As in the TPU kernel,
-// q is scaled in its own type before the f32 cast, the softmax state is
-// f32, and its denominator is clamped at 1e-30.
+// (FullAttention prepends learned memory-KV slots), D in {32, 64, 128}, and
+// for f32 also 72 (DiT-XL's heads). Inputs are f32 or bf16 and the output
+// has q's type. As in the TPU kernel, q is scaled in its own type before the
+// f32 cast, the softmax state is f32, and its denominator is clamped at
+// 1e-30.
 //
 // Two kernels; the wrapper (ops/flash_attention.py route) picks one per call
 // from its dtype and head dim: for f32 at D 32 flash_fwd_kernel_wgmma after
 // the pre-pass flash_fwd_kernel_split_kv, and flash_fwd_kernel (mma.sync)
-// for bf16 and for D 64 and 128.
+// for bf16 and for D 64, 72 (f32 only: bf16's m16n8k16 product takes D in
+// steps of 16) and 128.
 //
 // What bounds them on this card: at the serving shape (BH 8, Nq 1024, Nk
 // 1028, D 32) the two products are 4 BH Nq Nk D = 1.078 GFLOP against 4.2 MB
@@ -47,8 +49,9 @@
 //     tiles in turn (even tiles / odd tiles) and merge their (max, sum, acc)
 //     through shared memory at the end. At the serving shape that is 256
 //     blocks, 8 warps on each of the 132 SMs.
-//   - K/V tiles (64 keys; 32 and 16 for f32 at D 64 and 128, 32 for bf16 at
-//     D 128) are copied with cp.async into two
+//   - K/V tiles (64 keys; 32 and 16 for f32 at D 64 and at D 72 and 128, 32
+//     for bf16 at D 128; at D 72 tiles of 32 and 64 keys spill registers and
+//     ran slower on the card) are copied with cp.async into two
 //     shared-memory stages, so the next pair of tiles loads while the
 //     current one is multiplied. Rows are padded by 16 bytes, which puts
 //     the 32 lanes of every fragment load on 32 different banks.
@@ -488,6 +491,12 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int b
       return launch<T, 32>(q, k, v, o, bh, nq, nk, scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, bh, nq, nk, scale, stream);
+    case 72:  // f32 only: 72 is not a whole number of bf16 k-steps of 16
+      if constexpr (sizeof(T) == sizeof(float)) {
+        return launch<T, 72>(q, k, v, o, bh, nq, nk, scale, stream);
+      } else {
+        return cudaErrorInvalidValue;
+      }
     case 128:
       return launch<T, 128>(q, k, v, o, bh, nq, nk, scale, stream);
     default:

@@ -63,11 +63,24 @@ class SolveResult(NamedTuple):
         return bool(self.converged) and not bool(self.failed)
 
 
+def matmul_tf32() -> bool:
+    """Whether cuBLAS's f32 matmuls run in TF32 now. The current flag
+    (`torch.backends.cuda.matmul.fp32_precision`) first: the legacy
+    `allow_tf32` cannot be read while it holds "tf32" (the model's
+    precision scope sets it, `utils/precision.py`); "none" defers to the
+    legacy flag."""
+    precision = torch.backends.cuda.matmul.fp32_precision
+    if precision != "none":
+        return precision == "tf32"
+    return bool(torch.backends.cuda.matmul.allow_tf32)
+
+
 def _require_true_f32() -> None:
-    if torch.backends.cuda.matmul.allow_tf32:
+    if matmul_tf32():
         raise RuntimeError(
             "FEM solves need true f32 matmuls: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False"
+            "torch.backends.cuda.matmul.allow_tf32 = False "
+            "(torch.backends.cuda.matmul.fp32_precision = 'ieee')"
         )
 
 

@@ -1,5 +1,6 @@
 from .adm import ADMUNet, make_adm_diffusion_model
 from .diffusion import GaussianDiffusion, make_diffusion_model
+from .dit import DiT, make_dit_diffusion_model
 from .fdnunet import (
     FDNUNet,
     FDNUNetAuxDecoder,
@@ -12,6 +13,7 @@ from .unet import UNet
 
 __all__ = [
     "ADMUNet",
+    "DiT",
     "FDNUNet",
     "FDNUNetAuxDecoder",
     "FDNUNetDecoder",
@@ -21,5 +23,6 @@ __all__ = [
     "create_models",
     "make_adm_diffusion_model",
     "make_diffusion_model",
+    "make_dit_diffusion_model",
     "predict",
 ]

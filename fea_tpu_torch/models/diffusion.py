@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils.precision import model_precision
+from ..utils.precision import matmul_precision, model_precision
 from ..utils.profiling import request_span, span
 from . import graphed
 from .fdnunet import FDNUNet
@@ -229,7 +229,6 @@ class GaussianDiffusion:
         return torch.mean((pred - target) ** 2)
 
     @torch.no_grad()
-    @model_precision()
     def sample(
         self,
         condition: torch.Tensor,
@@ -247,7 +246,9 @@ class GaussianDiffusion:
         self_condition step 0's model takes a zeros tensor made once a
         call and step i > 0 step i - 1's clamped x0, so that every step
         replays one graph. A learned-range model samples over the respaced
-        steps (module docstring)."""
+        steps (module docstring). The model's work runs inside
+        `model_precision`: TF32 convolutions, and the matmul precision
+        that the model declares as `matmul_precision` (DiT's TF32)."""
         b, h, w, _ = condition.shape
         shape = (b, h, w, 2)
         steps = num_steps or self.timesteps
@@ -268,7 +269,9 @@ class GaussianDiffusion:
             raise ValueError("sample needs a generator or the noise")
 
         f32 = np.float32
-        with request_span("sample.request") as request, graphed.scope(self.graphs):
+        matmul = matmul_precision() or getattr(self.model, "matmul_precision", None)
+        with (model_precision(matmul=matmul), request_span("sample.request") as request,
+              graphed.scope(self.graphs)):
             x = draw(0)
             if self.learned_range:
                 return self._sample_learned_range(x, condition, steps, draw, request.request)

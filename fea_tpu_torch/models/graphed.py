@@ -19,7 +19,8 @@ cannot be replayed safely (on the CPU, with grad on, inside another
 capture, with an argument that is not a tensor), and a graph is captured
 once per key:
   the module; each argument's shape, dtype and device (or None); the
-  convolutions' precision (`utils.precision.conv_precision`); whether
+  convolutions' and matmuls' precision (`utils.precision.conv_precision`,
+  `matmul_precision`); whether
   inference mode is on; the current stream; and the addresses of the
   module's parameters and buffers.
 Each thread keeps graphs of its own. A key whose capture raised runs
@@ -45,7 +46,7 @@ from typing import Iterator, Optional
 import torch
 
 from ..ops import graphs
-from ..utils.precision import conv_precision
+from ..utils.precision import conv_precision, matmul_precision
 from ..utils.profiling import span
 
 GRAPHS_PER_MODULE = 2
@@ -114,7 +115,7 @@ class GraphedForward:
             return forward(*args)
         key = (
             tuple(None if a is None else (a.shape, a.dtype, a.device) for a in args),
-            conv_precision(), torch.is_inference_mode_enabled(),
+            conv_precision(), matmul_precision(), torch.is_inference_mode_enabled(),
             torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else None,
             _addresses(module),
         )

@@ -12,7 +12,8 @@ in f32), bf16 inputs as bf16 products with P split into bf16 hi and lo.
 `route` picks one of two kernels per call from its dtype and head dim:
 "wgmma" for f32 at D 32, which splits K and V into TF32 once per call (into
 scratch memory) and runs both products with Hopper's wgmma, and "mma_sync"
-for bf16 and for D 64 and 128.
+for bf16 and for D 64, 72 and 128. D 72 (DiT-XL's heads) is f32 only: the
+bf16 product steps through D 16 at a time.
 """
 
 import ctypes
@@ -22,7 +23,8 @@ import torch
 from . import graphs
 from ._build import bind, check_aligned, check_contiguous, check_device
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 72, 128)
+F32_ONLY_HEAD_DIMS = (72,)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -46,7 +48,7 @@ def flash_attention_reference(q, k, v, scale: float = None):
 
 def route(dtype, d: int) -> str:
     """The kernel a CUDA call takes: "wgmma" for f32 at head dim 32,
-    "mma_sync" for bf16 and for D 64 and 128."""
+    "mma_sync" for bf16 and for D 64, 72 and 128."""
     return "wgmma" if dtype == torch.float32 and d == 32 else "mma_sync"
 
 
@@ -70,6 +72,9 @@ def _check_cuda_inputs(q, k, v):
         )
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if d in F32_ONLY_HEAD_DIMS and q.dtype != torch.float32:
+        raise TypeError(f"flash_attention takes head dim {d} in float32 only (the bf16 "
+                        f"product steps through D 16 at a time); got {q.dtype}")
     if min(bh, nq, k.shape[1]) < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     check_contiguous("flash_attention", named)
@@ -113,10 +118,11 @@ def flash_attention(q, k, v, scale: float = None):
     """softmax(q k^T * scale) v for q (BH, Nq, D), k/v (BH, Nk, D); Nk may
     differ from Nq (memory-KV slots). CUDA tensors go through the CUDA
     kernel that `route` picks; `flash_attention.launches` counts the
-    launches (a launch recorded in a CUDA graph at each replay), and
-    `launches_wgmma` those of the "wgmma" kernel. CPU tensors go through the
-    plain version. The kernel is forward only: on CUDA tensors that
-    require grad, with grad enabled, it raises."""
+    launches (a launch recorded in a CUDA graph at each replay),
+    `launches_wgmma` those of the "wgmma" kernel and `launches_d72` the f32
+    calls at head dim 72. CPU tensors go through the plain version. The
+    kernel is forward only: on CUDA tensors that require grad, with grad
+    enabled, it raises."""
     if q.device.type == k.device.type == v.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     _check_cuda_inputs(q, k, v)
@@ -127,8 +133,11 @@ def flash_attention(q, k, v, scale: float = None):
     graphs.count(flash_attention)
     if wgmma:
         graphs.count(flash_attention, "launches_wgmma")
+    elif q.shape[-1] == 72:
+        graphs.count(flash_attention, "launches_d72")
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_wgmma = 0
+flash_attention.launches_d72 = 0

@@ -197,6 +197,20 @@ def test_kernel_arithmetic_matches_pallas(shape):
     np.testing.assert_allclose(got.numpy(), pallas(q, k, v, dtype="bfloat16"), atol=1e-2, rtol=0)
 
 
+@pytest.mark.parametrize("shape", [(2, 100, 1028, 72), (1, 37, 4, 72), (2, 64, 130, 72),
+                                   (1, 1, 17, 72)])
+def test_d72_kernel_arithmetic_matches_plain(shape):
+    """f32 at head dim 72 (DiT-XL's heads; f32 only), emulated on the CPU:
+    nine TF32 k-steps of 8 a product, the kernel's 16-key tiles,
+    against the plain f32 chain at f32's atol 2e-5 / rtol 1e-4. Nk 4 and
+    17 leave a walk without keys or a ragged last tile."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(shape, seed=5))
+    got = kernel_emulation(q, k, v, "float32", block_keys(72, 4))
+    want = flash_attention_reference(q, k, v)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=1e-4)
+    assert float((got - want).abs().max()) > 0  # the emulation is not the plain chain
+
+
 def test_one_tf32_pass_is_not_enough():
     """Why the kernel takes three TF32 products for f32: one pass of
     tf32(a) @ tf32(b) in both products misses the f32 tolerance."""
@@ -211,6 +225,7 @@ def test_one_tf32_pass_is_not_enough():
 @pytest.mark.parametrize("dtype, d, want", [
     (torch.float32, 32, "wgmma"),
     (torch.float32, 64, "mma_sync"),
+    (torch.float32, 72, "mma_sync"),
     (torch.float32, 128, "mma_sync"),
     (torch.bfloat16, 32, "mma_sync"),
     (torch.bfloat16, 64, "mma_sync"),
@@ -268,6 +283,28 @@ def test_cuda_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(
         got.float(), flash_attention_reference(qb, kb, vb).float(), atol=1e-2, rtol=0
     )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 1024, 1024, 72), (2, 37, 4, 72), (3, 23, 1028, 72),
+                                   (2, 130, 17, 72), (1, 1, 1, 72)])
+def test_cuda_kernel_matches_plain_at_d72(cuda, shape):
+    """f32 at head dim 72 on mma.sync, DiT-XL's call (32, 1024, 1024, 72)
+    and ragged ones, at the D-64 route's tolerance (atol 2e-5 / rtol
+    1e-4); `launches_d72` counts each call, `launches_wgmma` none. bf16 at
+    D 72 raises and launches nothing."""
+    q, k, v = (torch.from_numpy(a).to(cuda) for a in qkv(shape, seed=6))
+    before = (port_flash_attention.launches, port_flash_attention.launches_wgmma,
+              port_flash_attention.launches_d72)
+    got = port_flash_attention(q, k, v, 72**-0.5)
+    torch.cuda.synchronize()
+    assert (port_flash_attention.launches, port_flash_attention.launches_wgmma,
+            port_flash_attention.launches_d72) == (before[0] + 1, before[1], before[2] + 1)
+    torch.testing.assert_close(got, flash_attention_reference(q, k, v, 72**-0.5), atol=2e-5,
+                               rtol=1e-4)
+    with pytest.raises(TypeError, match="float32 only"):
+        port_flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert port_flash_attention.launches == before[0] + 1
 
 
 @pytest.mark.gpu

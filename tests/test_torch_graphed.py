@@ -119,6 +119,7 @@ KEY_CASES = {
     "same": (lambda m: None, {}, False),
     "shape": (lambda m: None, {"batch": 3}, True),
     "precision": (lambda m: None, {"conv": "ieee"}, True),
+    "matmul_precision": (lambda m: None, {"matmul": "tf32"}, True),
     "address": (_replace_one_tensor, {}, True),
     "assign": (_replace_weights, {}, True),
     "in_place": (_bump_in_place, {}, False),
@@ -137,7 +138,7 @@ def test_a_new_key_captures_and_the_same_key_replays(model, case):
     assert _since(before) == (1, 0, 0) and stand_in.calls == 1
     change(model)
     x2, cond2, t2 = _inputs(batch=second.get("batch", 2), seed=2)
-    with model_precision(conv=second.get("conv")):
+    with model_precision(conv=second.get("conv"), matmul=second.get("matmul")):
         got = _call(runner, model, x2, cond2, t2)
         want = _eager(model, x2, cond2, t2)
     assert torch.equal(got, want)
